@@ -30,6 +30,11 @@ def pytest_configure(config):
         "sweep (-m 'not slow'); run by scripts/ci_lanes.sh and the "
         "fault-matrix CLI",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the PyTorch port's hand-written "
+        "kernels); skips without one",
+    )
 
 
 @pytest.fixture(autouse=True)
