@@ -5,31 +5,43 @@ The counterpart of ``pathway_tpu/ops/pallas_knn.py``: the CUDA kernel
 replaces the Pallas kernel ``_knn_kernel``, and backs ``KnnShard.search``
 and ``QueryEngine`` on CUDA, where the JAX package runs the equivalent XLA
 ``chunked_topk_scores`` scan. It computes what ``_knn_kernel`` computes —
-IEEE fp32 scores, the valid mask as -inf, the k best per query with ties to
-the lower slot — plus the l2sq epilogue of ``ops/topk.py``, without a
-[Q, cap] score matrix in device memory. Two launches: a partial pass over
-(query tiles x database splits) and a merge of the splits' partials.
+fp32-accurate scores (3xTF32 on the tensor cores), the valid mask as -inf,
+the k best per query with ties to the lower slot — plus the l2sq epilogue
+of ``ops/topk.py``, without a [Q, cap] score matrix in device memory. A
+partial pass over (query tiles x database splits), then, when there is
+more than one split, a merge of the splits' partials.
+
+It takes every k the JAX index serves, 1 <= k <= 8192 (the clamp of
+``internals/device.py:knn_search_bucket``). The wrapper picks the query
+tile (``plan_tile``) so that the running lists and the load stages fit in
+a block's shared memory, and the splits (``plan_splits``) so that one
+merge block holds every candidate.
 
 Bound on an H100 SXM: the database read, 4·cap·d bytes at 3.35 TB/s, or,
-when Q is large, 2·Q·cap·d FP32 operations at 67 TFLOP/s.
+when Q is large, the lesser of 2·Q·cap·d FP32 operations at 67 TFLOP/s and
+3 × 2·Q·cap·d TF32 operations at 495 TFLOP/s.
 
 For a CPU tensor the wrapper runs the plain version, ``chunked_topk_scores``;
-for a CUDA tensor it launches the kernel or raises.
+for a CUDA tensor it launches the kernels or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from pathway_tpu_torch.ops import _build
 from pathway_tpu_torch.ops.topk import chunked_topk_scores
 
-K_MAX = 128     # the kernel's largest k (csrc/fused_knn.cu K_MAX)
-_QT = 32        # queries per CTA (csrc QT)
-_TN = 256       # database rows per tile (csrc TN)
-_MERGE_MAX = 4096  # merge candidates per query: splits * k
+K_MAX = 8192    # the largest k, the JAX index's clamp (csrc K_MAX)
+_TN = 256       # rows per split are a multiple of this (csrc ROW_GRANULE)
+_MERGE_MAX = 32768  # merge candidates per query, splits * k (csrc MERGE_MAX)
+_TILES = (8, 16, 32, 64, 128)  # query-tile instances of the partial kernel
+_SMEM_MAX = 232448  # shared memory one block may use on Hopper (227 KB)
+# shared-memory layout of the partial kernel (csrc partial_smem_bytes)
+_STAGES, _DKP = 2, 68
 
 # launches of each kernel, counted where the wrapper launches it
 LAUNCHES = {"fused_knn": 0, "topk_merge": 0}
@@ -57,38 +69,85 @@ def fused_knn_cost(
     return flops, bytes_accessed
 
 
+_LIB: ctypes.CDLL | None = None
+
+
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_knn")
-    if not getattr(lib, "_pw_typed", False):
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("fused_knn")
         lib.fused_knn_partial.argtypes = [
-            _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+            _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
         ]
         lib.fused_knn_partial.restype = _I
         lib.fused_knn_merge.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P]
         lib.fused_knn_merge.restype = _I
-        consts = (
-            (lib.fused_knn_k_max, K_MAX), (lib.fused_knn_qt, _QT),
-            (lib.fused_knn_tn, _TN),
-        )
-        for fn, want in consts:
-            fn.restype = _I
-            if fn() != want:
+        lib.fused_knn_partial_smem.argtypes = [_I, _I, _I]
+        lib.fused_knn_partial_smem.restype = ctypes.c_longlong
+        consts = [
+            (lib.fused_knn_k_max, (), K_MAX),
+            (lib.fused_knn_row_granule, (), _TN),
+            (lib.fused_knn_merge_max, (), _MERGE_MAX),
+        ] + [
+            (lib.fused_knn_partial_smem, (qt, qpc, k), partial_smem(qt, qpc, k))
+            for qt in _TILES for qpc, k in ((1, 1), (qt, 10), (2, 8192))
+        ]
+        for fn, args, want in consts:
+            if not args:
+                fn.restype = _I
+            if fn(*args) != want:
                 raise RuntimeError(
-                    f"csrc/fused_knn.cu {fn.__name__} disagrees with the wrapper"
+                    f"csrc/fused_knn.cu {fn.__name__}{args} disagrees with the wrapper"
                 )
-        lib._pw_typed = True
-    return lib
+        _LIB = lib
+    return _LIB
+
+
+def _launch(dev: torch.device, fn, *args) -> int:
+    """Call a launcher of the library on ``dev``'s current stream; the
+    device switch is paid only when ``dev`` is not the current device."""
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(dev):
+        return fn(*args, stream)
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def partial_smem(qt: int, qpc: int, k: int) -> int:
+    """Shared-memory bytes of one partial-kernel block: the cp.async ring
+    of database rows and query dims, the score tile, |q|^2 and the ``qpc``
+    running lists of k (value, slot) pairs."""
+    tn = 128 if qt >= 64 else 256
+    return 4 * (_STAGES * (tn + qt) * _DKP + qt * (tn + 4) + qt) + 8 * qpc * k
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_tile(q: int, k: int) -> tuple[int, int]:
+    """(query-tile instance, queries per CTA): the smallest instance that
+    covers the batch (at most 128), smaller while the lists do not fit,
+    and below 8 queries per CTA — the mma's N width, the rest of the
+    columns masked — for the largest k."""
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"the fused KNN kernel takes 1 <= k <= {K_MAX}, got {k}")
+    qt = next(t for t in _TILES if t >= min(max(q, 1), _TILES[-1]))
+    while qt > _TILES[0] and partial_smem(qt, qt, k) > _SMEM_MAX:
+        qt //= 2
+    qpc = qt
+    while partial_smem(qt, qpc, k) > _SMEM_MAX:
+        qpc -= 1
+    return qt, qpc
+
+
+@functools.lru_cache(maxsize=1024)
 def plan_splits(q: int, cap: int, k: int, n_sm: int) -> tuple[int, int]:
     """(rows per split, splits): about two CTAs per SM over the query
-    tiles, each split a whole number of row tiles, and no more than
-    ``_MERGE_MAX`` merge candidates per query."""
-    want = _cdiv(2 * n_sm, _cdiv(q, _QT))
+    tiles, each split a whole number of 256-row granules, and no more
+    than ``_MERGE_MAX`` merge candidates per query."""
+    want = _cdiv(2 * n_sm, _cdiv(q, plan_tile(q, k)[1]))
     want = max(1, min(want, _MERGE_MAX // k, _cdiv(cap, _TN)))
     rows = _cdiv(_cdiv(cap, want), _TN) * _TN
     return rows, _cdiv(cap, rows)
@@ -142,9 +201,9 @@ def topk_merge_plain(part_v, part_i, k):
 def knn_partial(queries, database, valid, k, rows, *, sq_norms=None,
                 metric="dot"):
     """Partial pass: ``[splits, Q, k]`` top-k values and slots of each
-    ``rows``-row split of the database (``rows`` a multiple of 256). A
-    CUDA tensor launches the kernel; a CPU tensor runs the plain
-    version."""
+    ``rows``-row split of the database (``rows`` a multiple of 256), the
+    query tile from ``plan_tile``. A CUDA tensor launches the kernel; a
+    CPU tensor runs the plain version."""
     if queries.device.type == "cpu":
         return knn_partial_plain(
             queries, database, valid, k, rows, sq_norms=sq_norms, metric=metric
@@ -152,8 +211,7 @@ def knn_partial(queries, database, valid, k, rows, *, sq_norms=None,
     dev = queries.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if not 1 <= k <= K_MAX:
-        raise ValueError(f"the fused KNN kernel takes 1 <= k <= {K_MAX}, got {k}")
+    qt, qpc = plan_tile(queries.shape[0], k)
     _check("queries", queries, torch.float32, 2, dev)
     _check("database", database, torch.float32, 2, dev)
     _check("valid", valid, torch.bool, 1, dev)
@@ -178,15 +236,13 @@ def knn_partial(queries, database, valid, k, rows, *, sq_norms=None,
     part_i = torch.empty((splits, Q, k), dtype=torch.int32, device=dev)
     if Q == 0 or N == 0:
         return part_v, part_i
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.fused_knn_partial(
-            queries.data_ptr(), database.data_ptr(), valid.data_ptr(),
-            sq_norms.data_ptr() if l2sq else None,
-            Q, N, D, k, int(l2sq), rows, splits,
-            part_v.data_ptr(), part_i.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    err = _launch(
+        dev, _lib().fused_knn_partial,
+        queries.data_ptr(), database.data_ptr(), valid.data_ptr(),
+        sq_norms.data_ptr() if l2sq else None,
+        Q, N, D, k, int(l2sq), rows, splits, qt, qpc,
+        part_v.data_ptr(), part_i.data_ptr(),
+    )
     if err:
         raise RuntimeError(f"fused_knn partial launch failed: cudaError {err}")
     LAUNCHES["fused_knn"] += 1
@@ -213,13 +269,11 @@ def topk_merge(part_v, part_i, k):
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0 or splits == 0:
         return out_v.fill_(float("-inf")), out_i.zero_()
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.fused_knn_merge(
-            part_v.data_ptr(), part_i.data_ptr(), Q, splits, kp, k,
-            out_v.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    err = _launch(
+        dev, _lib().fused_knn_merge,
+        part_v.data_ptr(), part_i.data_ptr(), Q, splits, kp, k,
+        out_v.data_ptr(), out_i.data_ptr(),
+    )
     if err:
         raise RuntimeError(f"fused_knn merge launch failed: cudaError {err}")
     LAUNCHES["topk_merge"] += 1
@@ -239,9 +293,10 @@ def fused_topk_scores(
     slots [Q, k] int32), ties to the lower slot, a missing entry -inf.
 
     ``metric`` is "dot" or "l2sq" (negated squared distance, from
-    ``sq_norms``). Scores are IEEE fp32. ``k`` is at most 128 on every
+    ``sq_norms``). Scores are fp32-accurate. ``k`` is 1..8192 on every
     device. On CUDA: the partial kernel over about two CTAs per SM, then
-    the merge kernel; on the CPU: the plain ``chunked_topk_scores``.
+    the merge kernel unless the plan has one split; on the CPU: the plain
+    ``chunked_topk_scores``.
     """
     if not 1 <= k <= K_MAX:
         raise ValueError(f"fused_topk_scores takes 1 <= k <= {K_MAX}, got {k}")
@@ -256,8 +311,10 @@ def fused_topk_scores(
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
     n_sm = torch.cuda.get_device_properties(queries.device).multi_processor_count
-    rows, _ = plan_splits(queries.shape[0], database.shape[0], k, n_sm)
+    rows, splits = plan_splits(queries.shape[0], database.shape[0], k, n_sm)
     part_v, part_i = knn_partial(
         queries, database, valid, k, rows, sq_norms=sq_norms, metric=metric
     )
+    if splits == 1:  # one split's list is already the answer
+        return part_v[0], part_i[0]
     return topk_merge(part_v, part_i, k)

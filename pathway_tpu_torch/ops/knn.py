@@ -196,8 +196,8 @@ class KnnShard:
     # -- search -----------------------------------------------------------
     def topk(self, queries: torch.Tensor, k_eff: int, metric: str):
         """(values, slots) on the device for queries already on it:
-        the fused kernel on CUDA (k <= 128), the plain chunked scan on
-        the CPU. ``metric`` is "dot" or "l2sq". Caller holds
+        the fused kernel on CUDA (any k_eff of ``knn_search_bucket``,
+        1..8192), the plain chunked scan on the CPU. ``metric`` is "dot" or "l2sq". Caller holds
         ``self.lock``."""
         sq = self.sq_norms if metric == "l2sq" else None
         if self.device.type == "cuda":

@@ -171,6 +171,36 @@ def test_query_engine_matches_jax(metric, k):
         np.testing.assert_allclose([s for _, s in g], [s for _, s in w], atol=1e-5)
 
 
+@pytest.mark.parametrize("metric", ["cos", "dot", "l2sq"])
+@pytest.mark.parametrize("k", [200, 1024])
+def test_query_engine_large_k_matches_jax(metric, k):
+    """k above the old 128 limit: the same keys in the same order as the
+    JAX engine over 45 documents and 1,200 seeded rows."""
+    je, te = _encoders()
+    rng = np.random.default_rng(k)
+    extra = rng.normal(size=(1200, je.embed_dim)).astype(np.float32)
+    extra /= np.linalg.norm(extra, axis=1, keepdims=True)
+    rows = np.concatenate([np.asarray(je.encode(DOCS)), extra])
+    keys = KEYS + [f"r{i}" for i in range(len(extra))]
+    jshard = JaxShard(je.embed_dim, metric)
+    tshard = KnnShard(te.embed_dim, metric, device=CPU)
+    for shard in (jshard, tshard):
+        shard.add(keys, rows)
+        shard.remove(KEYS[10:14])
+    queries = DOCS[::9]
+    want = JaxEngine(je, jshard, k=k).query(queries)
+    got = QueryEngine(te, tshard, k=k, device=CPU).query(queries)
+    assert [len(r) for r in got] == [min(k, len(tshard))] * len(queries)
+    for g, w in zip(got, want):
+        gs, ws = np.array([s for _, s in g]), np.array([s for _, s in w])
+        np.testing.assert_allclose(gs, ws, atol=1e-5)
+        # keys equal wherever the score stands 1e-5 clear of its neighbours
+        # (f32 products summed in another order may swap nearer ones)
+        gap = np.abs(np.diff(ws))
+        clear = np.minimum(np.r_[np.inf, gap], np.r_[gap, np.inf]) > 1e-5
+        assert [x for (x, _), c in zip(g, clear) if c] == [x for (x, _), c in zip(w, clear) if c]
+
+
 def test_query_engine_matches_two_step():
     enc = SentenceEncoder(EncoderConfig.tiny(), batch_size=4, device=CPU)
     shard = KnnShard(enc.embed_dim, "cos", device=CPU)

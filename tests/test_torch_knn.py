@@ -40,6 +40,7 @@ CASES = [  # (seed, cap, d, q, k, block)
     (1, 512, 16, 7, 10, 128),
     (2, 1024, 32, 3, 1, 256),
     (3, 2048, 64, 9, 17, 1024),
+    (7, 512, 16, 3, 129, 256),  # k above the 128 the kernel once capped
 ]
 
 
@@ -91,12 +92,54 @@ def test_split_and_merge_plain_matches_scan(n_sm, k, metric):
     args = (torch.from_numpy(queries), torch.from_numpy(db), torch.from_numpy(valid))
     rows, splits = fused_knn.plan_splits(40, 4096, k, n_sm)
     assert rows % 256 == 0 and (splits - 1) * rows < 4096 <= splits * rows
-    assert splits * k <= 4096
+    assert splits * k <= fused_knn._MERGE_MAX
     part_v, part_i = fused_knn.knn_partial(*args, k, rows, sq_norms=sq, metric=metric)
     assert part_v.shape == (splits, 40, k)
     got_v, got_i = fused_knn.topk_merge(part_v, part_i, k)
     want_v, want_i = topk.chunked_topk_scores(*args, k, sq_norms=sq, metric=metric)
     assert torch.equal(got_i, want_i) and torch.equal(got_v, want_v)
+
+
+@pytest.mark.parametrize("metric", ["dot", "l2sq"])
+@pytest.mark.parametrize("k", [300, 1024])
+def test_large_k_matches_jax_chunked(metric, k):
+    db, queries, valid = _db(8, 2048, 16, 5)
+    sq = (db * db).sum(-1)
+    want_v, want_i = jax_chunked(
+        jnp.asarray(queries), jnp.asarray(db), jnp.asarray(valid), k,
+        sq_norms=jnp.asarray(sq), metric=metric,
+    )
+    got_v, got_i = fused_knn.fused_topk_scores(
+        torch.from_numpy(queries), torch.from_numpy(db), torch.from_numpy(valid), k,
+        sq_norms=torch.from_numpy(sq), metric=metric,
+    )
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows,k", [(4096, 200), (256, 300), (256, 1024)])
+def test_split_and_merge_plain_one_split_and_past_old_limit(rows, k):
+    """The kernel pair's plain form at one split (the partial is the
+    answer) and at splits * k above the old 4096 merge limit."""
+    db, queries, valid = _db(9, 4096, 8, 6)
+    args = (torch.from_numpy(queries), torch.from_numpy(db), torch.from_numpy(valid))
+    part_v, part_i = fused_knn.knn_partial_plain(*args, k, rows)
+    splits = part_v.shape[0]
+    assert splits == 4096 // rows and (splits == 1 or splits * k > 4096)
+    got_v, got_i = fused_knn.topk_merge_plain(part_v, part_i, k)
+    want_v, want_i = topk.chunked_topk_scores(*args, k)
+    assert torch.equal(got_i, want_i) and torch.equal(got_v, want_v)
+    if splits == 1:
+        assert torch.equal(part_i[0], want_i) and torch.equal(part_v[0], want_v)
+
+
+@pytest.mark.parametrize("q,k", [(1, 10), (32, 10), (256, 10), (32, 1024), (1, 8192), (129, 129)])
+def test_plan_fits_shared_memory_and_one_merge_block(q, k):
+    qt, qpc = fused_knn.plan_tile(q, k)
+    assert qt in fused_knn._TILES and 1 <= qpc <= qt
+    assert fused_knn.partial_smem(qt, qpc, k) <= fused_knn._SMEM_MAX
+    rows, splits = fused_knn.plan_splits(q, 1 << 20, k, 132)
+    assert splits * k <= fused_knn._MERGE_MAX and rows % 256 == 0
 
 
 def test_short_split_pads_missing_entries():
@@ -114,8 +157,9 @@ def test_kernel_limits_raise():
     q = torch.zeros(2, 8)
     db = torch.zeros(256, 8)
     valid = torch.ones(256, dtype=torch.bool)
-    with pytest.raises(ValueError, match="k <= 128"):
-        fused_knn.fused_topk_scores(q, db, valid, 129)
+    for k in (0, 8193):
+        with pytest.raises(ValueError, match="k <= 8192"):
+            fused_knn.fused_topk_scores(q, db, valid, k)
     with pytest.raises(ValueError, match="metric"):
         fused_knn.fused_topk_scores(q, db, valid, 3, metric="cos")
     with pytest.raises(ValueError, match="sq_norms"):
@@ -189,7 +233,7 @@ def _scenario(name, rng, d):
 
 @pytest.mark.parametrize("metric", ["cos", "dot", "l2sq"])
 @pytest.mark.parametrize("scenario", ["remove_upsert", "growth", "slot_reuse"])
-@pytest.mark.parametrize("k", [1, 5, 40])
+@pytest.mark.parametrize("k", [1, 5, 40, 200])
 def test_knn_shard_matches_jax(metric, scenario, k):
     rng = np.random.default_rng(sum(map(ord, metric + scenario)))
     d = 16
