@@ -23,7 +23,20 @@ Phases (each prints one JSON line; any failure exits non-zero):
             per-stage breakdown of one query and one ingest batch and a
             ``torch.profiler`` trace of them (device time by kernel, busy
             share);
-4. report   the ``kernels`` JSON line, then the device line.
+4. dataflow the repo's live-RAG template (examples/demo-question-answering)
+            on the port: 16,384 seeded documents written as files,
+            ``pw.io.fs.read`` (streaming) -> ``VectorStoreServer`` with
+            ``SentenceTransformerEmbedder("bge-small")`` (seeded weights)
+            -> ``BaseRAGQuestionAnswerer`` with a mock LLM -> ``pw.run()``
+            behind the REST gateway on a free port; ingest docs/s until
+            ``/v1/statistics`` counts every file, then 256 ``/v1/retrieve``
+            requests (k = 10) from 16 client threads and 16 ``/v2/answer``
+            requests; checks recall of each query's own document, that
+            every search the engine made agrees with the plain scan over
+            the index's own vectors, that the phase launched the KNN
+            kernel, and that JAX was never imported; prints the device
+            plane's per-site record over the serving window;
+5. report   the ``kernels`` JSON line, then the device line.
 
 It needs one CUDA card and the rest of the repository beside it; without
 either it exits non-zero and prints no result.
@@ -34,8 +47,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -52,9 +67,15 @@ DOC_BATCH = 256
 N_CLIENTS = 64
 QUERIES_PER_CLIENT = 8
 RECALL_MIN = 0.99
-# data-sheet peaks: (bytes/s, FP32 FLOP/s outside the tensor cores,
-# dense TF32 FLOP/s on the tensor cores)
-PEAKS = {"sxm": (3.35e12, 67e12, 495e12), "pcie": (2.0e12, 51e12, 378e12)}
+# the dataflow phase: corpus, clients and requests. The corpus is cut from
+# 65,536 documents (a team's document store) to 16,384: on an H100 host
+# the engine had not ingested 65,536 within 300 s, its host-side steps
+# growing with the corpus (PERF.md)
+DF_DOCS = 16384
+DF_CLIENTS = 16
+DF_RETRIEVES = 256
+DF_ANSWERS = 16
+DF_INGEST_TIMEOUT_S = 300
 
 
 def emit(obj) -> None:
@@ -81,9 +102,25 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def native_status() -> dict:
+    """Which of the engine's native host extensions loaded; each falls
+    back to pure Python when its build fails."""
+    from pathway_tpu_torch import native
+
+    return {"lib": native.get_lib() is not None,
+            "fastpath": native.get_fastpath() is not None,
+            "pwexec": native.get_pwexec() is not None}
+
+
 def phase_build(pt_build):
     t0 = time.perf_counter()
+    # the engine's host extensions build beside nvcc, so that the dataflow
+    # phase's ingest does not pay for their first use
+    native: dict = {}
+    host = threading.Thread(target=lambda: native.update(native_status()))
+    host.start()
     libs = pt_build.build_all()
+    host.join()
     secs = time.perf_counter() - t0
     for name in libs:
         log = os.path.join(pt_build.BUILD_DIR, f"{name}.log")
@@ -94,7 +131,7 @@ def phase_build(pt_build):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    emit({"phase": "build", "kernels": sorted(libs), "seconds": secs})
+    emit({"phase": "build", "kernels": sorted(libs), "native": native, "seconds": secs})
     print(smi, flush=True)
     return smi
 
@@ -417,6 +454,7 @@ def phase_main(pt, fk, seed: int):
         "microbatcher_recall_own_doc_top10": mb_recall,
         "launches": launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "native": native_status(),
     })
     if recall < RECALL_MIN or mb_recall < RECALL_MIN:
         fail(f"recall of the own document {recall} / {mb_recall} < {RECALL_MIN}")
@@ -520,6 +558,210 @@ def trace(pipe, engine, docs, keys, texts):
     }
 
 
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_dataflow(fk, seed: int):
+    """The live-RAG template through the port's dataflow engine and REST
+    gateway, on the card."""
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import device as devplane
+    from pathway_tpu_torch.internals.monitoring import ProberStats
+    from pathway_tpu_torch.models.tokenizer import VOCAB_ASSET
+    from pathway_tpu_torch.ops.topk import chunked_topk_scores
+    from pathway_tpu_torch.stdlib.indexing import nearest_neighbors as nn_mod
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.mocks import IdentityMockChat
+    from pathway_tpu_torch.xpacks.llm.question_answering import (
+        BaseRAGQuestionAnswerer, RAGClient,
+    )
+    from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreServer
+
+    with open(VOCAB_ASSET, encoding="utf-8") as f:
+        words = [w.strip() for w in f if w.strip().isalpha()]
+    rng = np.random.default_rng(seed + 7)
+    docs = make_docs(words, rng, DF_DOCS)
+    folder = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_docs_"), "docs")
+    os.makedirs(folder)
+    names = [f"doc{i:06d}.txt" for i in range(DF_DOCS)]
+    for name, text in zip(names, docs):
+        with open(os.path.join(folder, name), "w", encoding="utf-8") as f:
+            f.write(text)
+
+    # every search the engine makes, with the query vector it was given
+    searches: list = []
+    search_lock = threading.Lock()
+    adapter_search = nn_mod._KnnAdapter.search
+
+    def recording_search(self, queries):
+        out = adapter_search(self, queries)
+        with search_lock:
+            for (qdata, limit, _), (keys, _) in zip(queries, out):
+                searches.append((self, np.asarray(qdata, np.float32), limit, keys))
+        return out
+
+    nn_mod._KnnAdapter.search = recording_search
+
+    port = free_port()
+    docs_table = pw.io.fs.read(
+        folder, format="binary", with_metadata=True, mode="streaming",
+        autocommit_duration_ms=100,
+    )
+    store = VectorStoreServer(docs_table, embedder=SentenceTransformerEmbedder("bge-small"))
+    rag = BaseRAGQuestionAnswerer(llm=IdentityMockChat(), indexer=store, search_topk=6)
+    rag.build_server(host="127.0.0.1", port=port)
+
+    for name in fk.LAUNCHES:  # counts of this phase only
+        fk.LAUNCHES[name] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run_error: list = []
+
+    def run():
+        try:
+            pw.run()
+        except BaseException as e:
+            run_error.append(e)
+
+    t0 = time.perf_counter()
+    threading.Thread(target=run, name="pw.run", daemon=True).start()
+    client = RAGClient(host="127.0.0.1", port=port, timeout=120)
+    count, polls = 0, 0
+    while True:
+        if run_error:
+            fail(f"pw.run raised {run_error[0]!r}")
+        if time.perf_counter() - t0 > DF_INGEST_TIMEOUT_S:
+            fail(f"ingest of {DF_DOCS} documents did not finish: file_count {count}")
+        try:
+            count = int(client.statistics().get("file_count") or 0)
+        except OSError:
+            count = 0  # the gateway is not listening yet
+        polls += 1
+        if count >= DF_DOCS:
+            break
+        time.sleep(0.25)
+    ingest_s = time.perf_counter() - t0
+    if count != DF_DOCS:
+        fail(f"statistics count {count} files, wrote {DF_DOCS}")
+    ingest_launches = dict(fk.LAUNCHES)
+
+    # serving window: 256 retrieves from 16 threads, then 16 answers
+    stats = ProberStats()
+    devplane.PLANE.arm(None, stats)
+    with search_lock:
+        searches.clear()
+    qi = np.random.default_rng(seed + 11).choice(DF_DOCS, size=DF_RETRIEVES, replace=False)
+    lat: list[float] = []
+    hits: list[bool] = []
+    errors: list = []
+    lock = threading.Lock()
+
+    def retrieve_client(c):
+        cl = RAGClient(host="127.0.0.1", port=port, timeout=120)
+        try:
+            for i in qi[c::DF_CLIENTS]:
+                t1 = time.perf_counter()
+                res = cl.retrieve(docs[i], k=K)
+                dt = 1e3 * (time.perf_counter() - t1)
+                paths = [os.path.basename(r["metadata"]["path"]) for r in res]
+                with lock:
+                    lat.append(dt)
+                    hits.append(len(res) == K and names[i] in paths)
+        except BaseException as e:
+            with lock:
+                errors.append(e)
+
+    threads = [threading.Thread(target=retrieve_client, args=(c,)) for c in range(DF_CLIENTS)]
+    t1 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    serve_s = time.perf_counter() - t1
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"retrieve clients failed: {errors[:1]}")
+    answers = []
+    for i in qi[:DF_ANSWERS]:
+        t1 = time.perf_counter()
+        out = client.answer(docs[i])
+        answers.append((1e3 * (time.perf_counter() - t1), out))
+    devplane.PLANE.disarm()
+    torch.cuda.synchronize()
+    launches = dict(fk.LAUNCHES)
+
+    recall = float(np.mean(hits))
+    if len(lat) != DF_RETRIEVES:
+        fail(f"{len(lat)} of {DF_RETRIEVES} retrieves answered")
+    bad_answers = [o for _, o in answers
+                   if not str(o.get("response", "")).startswith("mock,")]
+    if bad_answers:
+        fail(f"/v2/answer gave {bad_answers[0]!r}")
+
+    # every engine search against the plain scan over the index's own
+    # vectors: the same key at every rank whose score stands 1e-5 clear
+    # of its neighbours (the kernels phase's rule)
+    with search_lock:
+        recorded = list(searches)
+    if len(recorded) < DF_RETRIEVES + DF_ANSWERS:
+        fail(f"the engine made {len(recorded)} index searches for "
+             f"{DF_RETRIEVES + DF_ANSWERS} requests")
+    agree = 0
+    for adapter, qvec, limit, keys in recorded:
+        shard = adapter.shard
+        q = torch.from_numpy(qvec).to(shard.device)[None]
+        q = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-30)
+        with shard.lock:
+            pv, pi = chunked_topk_scores(q, shard.vectors, shard.valid, limit + 1)
+            want = [shard.slot_to_key.get(int(s)) for s in pi[0, :limit].tolist()]
+        v = pv[0].cpu().numpy()
+        gap = v[:-1] - v[1:]
+        clear = np.minimum(np.r_[np.inf, gap[:limit - 1]], gap) > 1e-5
+        agree += len(keys) == limit and all(
+            g == w for g, w, c in zip(keys, want, clear) if c)
+    nn_mod._KnnAdapter.search = adapter_search
+
+    with stats._frame_lock:
+        sites = {
+            name: {"count": int(agg[0]), "device_ms": 1e3 * agg[2],
+                   "wall_ms": 1e3 * agg[1]}
+            for name, agg in stats.device_sites.items()
+        }
+    row = {
+        "phase": "dataflow", "config": "bge-small", "docs": DF_DOCS,
+        "ingest_s": ingest_s, "ingest_docs_per_s": DF_DOCS / ingest_s,
+        "statistics_polls": polls,
+        "retrieve_clients": DF_CLIENTS, "retrieves": len(lat), "k": K,
+        "retrieve_p50_ms": float(np.percentile(lat, 50)),
+        "retrieve_p99_ms": float(np.percentile(lat, 99)),
+        "retrieve_qps": len(lat) / serve_s,
+        "answer_p50_ms": float(np.median([a for a, _ in answers])),
+        "recall_own_doc_top10": recall,
+        "engine_searches": len(recorded), "searches_equal_plain": agree,
+        "device_sites": sites,
+        "launches_ingest": ingest_launches,
+        "launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "native": native_status(),
+        "jax_loaded": "jax" in sys.modules,
+    }
+    emit(row)
+    if recall < RECALL_MIN:
+        fail(f"dataflow recall of the own document {recall} < {RECALL_MIN}")
+    if agree != len(recorded):
+        fail(f"{len(recorded) - agree} of {len(recorded)} engine searches "
+             "disagree with the plain scan")
+    if launches.get("fused_knn", 0) <= 0:
+        fail(f"the dataflow phase launched no KNN kernel: {launches}")
+    if "jax" in sys.modules or any(m.startswith("pathway_tpu.") for m in sys.modules):
+        fail("JAX or the JAX package was imported")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -533,6 +775,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import pathway_tpu_torch as pt
+        from pathway_tpu_torch.internals.device import peak_rates
         from pathway_tpu_torch.ops import _build, fused_knn as fk, topk
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}", file=sys.stderr)
@@ -542,9 +785,18 @@ def main() -> int:
 
     smi = phase_build(_build)
     kind = torch.cuda.get_device_name(0)
-    peaks = PEAKS["pcie" if "pcie" in kind.lower() else "sxm"]
+    # data-sheet peaks: (bytes/s, FP32 FLOP/s outside the tensor cores,
+    # dense TF32 FLOP/s on the tensor cores)
+    rates = peak_rates(kind)
+    if rates is None:
+        fail(f"no data-sheet peaks for {kind!r} in internals/device.py")
+    peaks = (rates["bandwidth"], rates["fp32"], rates["tf32"])
     kern = phase_kernels(fk, topk, peaks, args.seed)
-    launches = phase_main(pt, fk, args.seed)
+    main_launches = phase_main(pt, fk, args.seed)
+    df_launches = phase_dataflow(fk, args.seed)
+    # the kernels line counts the launches of every path this run drove
+    launches = {k: main_launches.get(k, 0) + df_launches.get(k, 0)
+                for k in set(main_launches) | set(df_launches)}
 
     main_q = kern[(256, K)]
     src = "pathway_tpu_torch/csrc/fused_knn.cu"
@@ -573,4 +825,19 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    except SystemExit as e:  # fail(): the message is the exit code
+        if not isinstance(e.code, int):
+            print(e.code, file=sys.stderr)
+        rc = e.code if isinstance(e.code, int) else 1
+    except BaseException:
+        import traceback
+
+        traceback.print_exc()
+        rc = 1
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # the dataflow phase's pw.run() serves until the process ends: end it
+    # here, with every thread it started
+    os._exit(rc)

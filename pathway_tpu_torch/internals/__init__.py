@@ -1,1 +1,3 @@
-"""pathway_tpu_torch.internals — device resolution and shape buckets."""
+"""pathway_tpu_torch.internals — the Table DSL, schema, expressions, graph
+capture, config and observability planes, and the device plane
+(``device.py``)."""

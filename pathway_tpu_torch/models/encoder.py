@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Any, Sequence
 
 import numpy as np
@@ -30,8 +31,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pathway_tpu_torch.internals import device as _devsup
 from pathway_tpu_torch.internals.device import (
+    PLANE as _DEVICE,
     batch_bucket,
+    device_site,
+    nbytes_of,
     resolve_device,
     seq_bucket,
 )
@@ -95,6 +100,17 @@ class _Attention(nn.Module):
         self.key = nn.Linear(h, h)
         self.value = nn.Linear(h, h)
         self.out = nn.Linear(h, h)
+        self._scales: dict = {}
+
+    def _scale(self, hd: int, dt: torch.dtype, device) -> torch.Tensor:
+        """sqrt(depth) rounded to the dtype, as a 0-dim tensor made once
+        per (dtype, device): a CUDA graph capture may not copy from the
+        host, so the forward itself makes no new host tensor."""
+        key = (dt, device)
+        t = self._scales.get(key)
+        if t is None:
+            t = self._scales[key] = torch.tensor(math.sqrt(hd), dtype=dt, device=device)
+        return t
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         n, L, h = x.shape
@@ -104,7 +120,7 @@ class _Attention(nn.Module):
         k = _linear(x, self.key).view(n, L, self.heads, hd)
         v = _linear(x, self.value).view(n, L, self.heads, hd)
         # Flax scales the query by sqrt(depth) rounded to the dtype
-        q = q / torch.tensor(math.sqrt(hd), dtype=dt, device=x.device)
+        q = q / self._scale(hd, dt, x.device)
         s = torch.einsum("nqhd,nkhd->nhqk", q, k)
         s = torch.where(mask, s, torch.finfo(dt).min)
         # jax.nn.softmax in the activation dtype
@@ -198,6 +214,16 @@ def forward_cost_model(
     return flops, encoder_param_bytes(cfg) + act_b
 
 
+device_site(
+    "encoder.forward",
+    cost_model=forward_cost_model,
+    dtypes=("int16", "int32", "float32", "bfloat16"),
+    where="pathway_tpu_torch/models/encoder.py:SentenceEncoder.encode_tokens_device",
+    description="sentence-encoder forward "
+                "(pow2 batch x multiple-of-32 seq buckets)",
+)
+
+
 def pad_batch(ids: np.ndarray, mask: np.ndarray, max_len: int, batch_cap: int):
     """Pad (ids, mask) to the bounded (batch, seq) shape set: pow2 batch
     buckets x multiple-of-32 sequence buckets. Returns
@@ -272,14 +298,52 @@ class SentenceEncoder:
         model = TransformerEncoder(self.config)
         model.load_state_dict(params)
         self.model = model.to(self.device).eval()
+        # CUDA graphs of the forward, one per padded (batch, seq) bucket
+        self._graphs: dict = {}
+        self._graph_lock = threading.Lock()
+        self._graph_pool = None
 
     @property
     def embed_dim(self) -> int:
         return self.config.hidden
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Embeddings of a padded batch. On the card the forward replays a
+        CUDA graph captured for the batch's shape: eager, its ~300 small
+        launches each release and retake the GIL, and beside a busy Python
+        thread (a connector's rescan, the engine's own operators) every
+        retake can wait out the interpreter's switch interval."""
         with torch.inference_mode():
-            return self.model(ids, mask)
+            if self.device.type != "cuda":
+                return self.model(ids, mask)
+            with self._graph_lock:
+                key = (tuple(ids.shape), ids.dtype, mask.dtype)
+                entry = self._graphs.get(key)
+                if entry is None:
+                    entry = self._graphs[key] = self._capture(ids, mask)
+                graph, ids_in, mask_in, out = entry
+                ids_in.copy_(ids)
+                mask_in.copy_(mask)
+                graph.replay()
+                return out.clone()
+
+    def _capture(self, ids: torch.Tensor, mask: torch.Tensor):
+        """Capture the forward at the shape and types of ``ids``/``mask``
+        into a graph whose memory pool every graph of this encoder
+        shares (they replay one at a time, under ``_graph_lock``)."""
+        ids_in, mask_in = ids.clone(), mask.clone()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):  # warm-up: lazy inits stay out of the graph
+            self.model(ids_in, mask_in)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool,
+                              capture_error_mode="thread_local"):
+            out = self.model(ids_in, mask_in)
+        return graph, ids_in, mask_in, out
 
     def encode(self, texts: Sequence[str]) -> np.ndarray:
         texts = list(texts)
@@ -303,21 +367,53 @@ class SentenceEncoder:
     def encode_tokens_device(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
         """Device-encode a pre-tokenized batch — the shared padding +
         forward core. Uses the compact uint16-ids-plus-lengths transfer
-        when the mask is a contiguous prefix and ids fit 16 bits."""
+        when the mask is a contiguous prefix and ids fit 16 bits.
+
+        The device site ``encoder.forward``: the launch runs under
+        ``supervised_dispatch`` and, while the device plane is armed,
+        inside one timed dispatch record closed on CUDA events."""
         ids_p, mask_p, n = pad_batch(
             ids, mask, self.config.max_len, self.batch_size
         )
         compact = compact_tokens(ids_p, mask_p, self.config.vocab_size)
+        nb, Lb = ids_p.shape
+        dev = _DEVICE.begin("encoder.forward", self.device) if _DEVICE.on else None
         if compact is not None:
-            ids16, lengths = compact
-            ids_t, mask_t = expand_compact(
-                torch.from_numpy(ids16).to(self.device),
-                torch.from_numpy(lengths).to(self.device),
-            )
+            wire = compact
+            lengths = compact[1]
         else:
-            ids_t = torch.from_numpy(ids_p).to(self.device, torch.int64)
-            mask_t = torch.from_numpy(mask_p).to(self.device)
-        return self.forward(ids_t, mask_t)[:n]
+            wire = (ids_p, mask_p)
+            lengths = mask_p.sum(axis=1, dtype=np.int32)
+
+        def launch() -> torch.Tensor:
+            if compact is not None:
+                ids_t, mask_t = expand_compact(
+                    torch.from_numpy(wire[0]).to(self.device),
+                    torch.from_numpy(wire[1]).to(self.device),
+                )
+            else:
+                ids_t = torch.from_numpy(ids_p).to(self.device, torch.int64)
+                mask_t = torch.from_numpy(mask_p).to(self.device)
+            return self.forward(ids_t, mask_t)
+
+        try:
+            emb = _devsup.supervised_dispatch("encoder.forward", launch)
+        except BaseException:
+            # close the record on the failure path (an abandoned record
+            # leaks dispatch-queue depth)
+            _DEVICE.end(dev, None, block=False)
+            raise
+        if dev is not None:
+            # effective share: real tokens over padded tokens — the
+            # bucket-padding waste the effective-MFU gauge exposes
+            flops, acc = forward_cost_model(self.config, nb, Lb)
+            eff_tokens = float(np.sum(lengths[:n], dtype=np.int64))
+            _DEVICE.end(
+                dev, emb, flops=flops, bytes_accessed=acc,
+                transfer_bytes=nbytes_of(*wire, emb),
+                effective_share=eff_tokens / float(nb * Lb),
+            )
+        return emb[:n]
 
     def __call__(self, texts: Sequence[str]) -> np.ndarray:
         return self.encode(texts)

@@ -1,7 +1,7 @@
 """pathway_tpu_torch.ops — the live-RAG device path in PyTorch: the
 device-resident KNN shard, its hand-written fused KNN kernel for Hopper,
 the fused ingest chain and the serving engine (the counterparts of
-``pathway_tpu.ops``)."""
+the JAX package's ``ops``)."""
 
 from pathway_tpu_torch.ops.fused_knn import fused_topk_scores
 from pathway_tpu_torch.ops.ingest import IngestPipeline

@@ -9,6 +9,12 @@ CUDA a search is one launch of the hand-written fused KNN kernel
 
 Writes are in place (``index_copy_``/indexed assignment). The JAX shard
 gets the same effect by donating its buffers to the write executable.
+
+Writes and searches are the device sites ``knn.write`` and ``knn.search``:
+each launch runs under ``supervised_dispatch`` and, while the device plane
+is armed, inside one timed dispatch record (``internals/device.py``).
+Growth passes the ``device.oom`` fault point (site ``knn.grow``); a refused
+growth leaves the index serving at its committed capacity.
 """
 
 from __future__ import annotations
@@ -20,13 +26,18 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from pathway_tpu_torch.internals import device as _devsup
 from pathway_tpu_torch.internals.device import (
+    PLANE as _DEVICE,
+    device_site,
     knn_search_bucket,
+    nbytes_of,
     pow2_capacity,
     resolve_device,
 )
+from pathway_tpu_torch.internals.faults import fault_point
 from pathway_tpu_torch.ops.fused_knn import fused_topk_scores
-from pathway_tpu_torch.ops.topk import chunked_topk_scores
+from pathway_tpu_torch.ops.topk import chunked_topk_scores, topk_scan_cost
 
 _MIN_CAPACITY = 128
 
@@ -35,6 +46,31 @@ class Metric(enum.Enum):
     COS = "cos"
     L2SQ = "l2sq"
     DOT = "dot"
+
+
+def write_cost_model(nrows: int, d: int) -> tuple[float, float]:
+    """Analytical ``(flops, bytes_accessed)`` of one slot write: the
+    optional normalize + sq-norm reduction over the written rows,
+    touching the rows + norms in device memory."""
+    return 4.0 * nrows * d, 8.0 * nrows * d + 8.0 * nrows
+
+
+device_site(
+    "knn.write",
+    cost_model=write_cost_model,
+    dtypes=("float32", "bool", "int64"),
+    where="pathway_tpu_torch/ops/knn.py:KnnShard.add",
+    donates=("vectors", "valid", "sq_norms"),
+    description="in-place slot write into the device buffer triple",
+)
+
+device_site(
+    "knn.search",
+    cost_model=topk_scan_cost,
+    dtypes=("float32", "bool", "int32"),
+    where="pathway_tpu_torch/ops/knn.py:KnnShard.search",
+    description="fused matmul + top-k scan over the padded vector store",
+)
 
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
@@ -90,6 +126,10 @@ class KnnShard:
         self.remove_epoch = 0
         self.slot_freed_epoch = np.full(self.capacity, -1, np.int64)
 
+    # device sites reachable through this index as an external-index
+    # adapter
+    device_sites = ("knn.write", "knn.search")
+
     def __len__(self) -> int:
         return len(self.key_to_slot)
 
@@ -100,13 +140,28 @@ class KnnShard:
             return
         pad = new_cap - self.capacity
         dev = self.device
-        self.vectors = torch.cat(
-            [self.vectors, torch.zeros((pad, self.dimension), device=dev)]
-        )
-        self.valid = torch.cat(
-            [self.valid, torch.zeros(pad, dtype=torch.bool, device=dev)]
-        )
-        self.sq_norms = torch.cat([self.sq_norms, torch.zeros(pad, device=dev)])
+        # growth is the OOM site: allocate the doubled buffers into locals
+        # and commit only on success, so a refused growth leaves the index
+        # serving at its committed capacity (the failing add aborts; the
+        # serving breaker browns out through notify_oom)
+        try:
+            fault_point("device.oom", site="knn.grow")
+            vectors = torch.cat(
+                [self.vectors, torch.zeros((pad, self.dimension), device=dev)]
+            )
+            valid = torch.cat(
+                [self.valid, torch.zeros(pad, dtype=torch.bool, device=dev)]
+            )
+            sq_norms = torch.cat([self.sq_norms, torch.zeros(pad, device=dev)])
+        except BaseException as exc:
+            if _devsup.classify_device_error(exc) == "oom":
+                _devsup.notify_oom("knn.grow")
+                raise _devsup.DeviceOom(
+                    f"knn index refused growth to {new_cap} slots "
+                    f"(device memory exhausted): {exc!r}"
+                ) from exc
+            raise
+        self.vectors, self.valid, self.sq_norms = vectors, valid, sq_norms
         self.free_slots = (
             list(range(new_cap - 1, self.capacity - 1, -1)) + self.free_slots
         )
@@ -167,8 +222,24 @@ class KnnShard:
             raise ValueError("keys/vectors length mismatch")
         with self.lock:
             slots = self._assign_slots(keys)
-            self._write_slots(
-                slots, vecs, True, normalize=self.metric is Metric.COS
+            dev = _DEVICE.begin("knn.write", self.device) if _DEVICE.on else None
+            try:
+                # supervised: injected faults raise before the launch, so
+                # a retry rewrites the same slots (an upsert)
+                _devsup.supervised_dispatch(
+                    "knn.write",
+                    lambda: self._write_slots(
+                        slots, vecs, True, normalize=self.metric is Metric.COS
+                    ),
+                )
+            except BaseException:
+                _DEVICE.end(dev, None, block=False)
+                raise
+        if dev is not None:
+            flops, acc = write_cost_model(len(slots), self.dimension)
+            _DEVICE.end(
+                dev, self.vectors, flops=flops, bytes_accessed=acc,
+                transfer_bytes=nbytes_of(vecs) + 8 * len(slots),
             )
 
     def remove(self, keys: Sequence[Any]) -> None:
@@ -221,11 +292,36 @@ class KnnShard:
         if self.metric is Metric.COS:
             queries = _normalize(queries)
         metric = "l2sq" if self.metric is Metric.L2SQ else "dot"
-        with self.lock:  # read + launch before the next in-place write
-            _, _, k_eff = knn_search_bucket(n, self.capacity, k, None)
-            vals, idx = self.topk(queries.contiguous(), k_eff, metric)
-            epoch = self.remove_epoch
-        vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+        queries = queries.contiguous()
+        # one timed dispatch record per scan (one attribute check when the
+        # plane is off); it closes after the readback, outside the lock
+        dev = _DEVICE.begin("knn.search", self.device) if _DEVICE.on else None
+        try:
+            with self.lock:  # read + launch before the next in-place write
+                _, _, k_eff = knn_search_bucket(n, self.capacity, k, None)
+                vals, idx = _devsup.supervised_dispatch(
+                    "knn.search", lambda: self.topk(queries, k_eff, metric)
+                )
+                _DEVICE.enqueued(dev)
+                epoch = self.remove_epoch
+                live_rows = len(self.key_to_slot)
+                capacity = self.capacity
+            vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+        except BaseException:
+            # close the record on the failure path too: an abandoned
+            # record leaks queue depth
+            _DEVICE.end(dev, None, block=False)
+            raise
+        if dev is not None:
+            flops, acc = topk_scan_cost(n, capacity, self.dimension, k_eff)
+            # effective FLOPs: only live rows count as useful work — the
+            # empty tail of the pow2 capacity buffer is padding waste
+            flops_eff, _ = topk_scan_cost(n, live_rows, self.dimension, k_eff)
+            _DEVICE.end(
+                dev, vals, flops=flops, flops_effective=flops_eff,
+                bytes_accessed=acc,
+                transfer_bytes=nbytes_of(queries, vals, idx),
+            )
         out: list[list[tuple[Any, float]]] = []
         for qi in range(n):
             hits = []

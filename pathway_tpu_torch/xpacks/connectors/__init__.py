@@ -1,0 +1,6 @@
+"""Enterprise connector xpack (reference:
+python/pathway/xpacks/connectors/)."""
+
+from pathway_tpu_torch.xpacks.connectors import sharepoint
+
+__all__ = ["sharepoint"]

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on
-the card. They skip where there is no CUDA device; on a machine with one:
+the card, and the device plane's CUDA paths (records timed on CUDA
+events, CUDA OOM classification). They skip where there is no CUDA device; on a machine with one:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
@@ -197,3 +198,62 @@ def test_merge_at_the_largest_plan(gen, splits, kp, k):
     xv, xi = fused_knn.topk_merge_plain(v, i, k)
     torch.cuda.synchronize()
     assert torch.equal(mv, xv) and torch.equal(mi, xi)
+
+
+def test_device_plane_closes_a_knn_search_record_on_cuda_events(gen):
+    """An armed plane times ``knn.search`` between two CUDA events and
+    delivers the record without a synchronize of its own."""
+    from pathway_tpu_torch.internals import device as devplane
+    from pathway_tpu_torch.internals.monitoring import ProberStats
+    from pathway_tpu_torch.ops.knn import KnnShard
+
+    shard = KnnShard(64, "cos", capacity=1 << 16)
+    x = torch.randn((1 << 16, 64), generator=gen, device="cuda")
+    shard.add(range(1 << 16), x)
+    stats = ProberStats()
+    devplane.PLANE.arm(None, stats)
+    try:
+        hits = shard.search(x[:4], 10)
+    finally:
+        devplane.PLANE.disarm()  # flushes the pending records
+    assert [h[0][0] for h in hits] == [0, 1, 2, 3]
+    count, wall_s, device_s = stats.device_sites["knn.search"][:3]
+    assert count == 1
+    assert 0.0 < device_s <= wall_s
+    assert stats.device_hbm_available and stats.device_hbm_peak > 0
+
+
+def test_classify_device_error_knows_cuda_oom(gen):
+    from pathway_tpu_torch.internals import device as devplane
+
+    oom = None
+    try:
+        torch.empty(1 << 50, dtype=torch.uint8, device="cuda")
+    except torch.cuda.OutOfMemoryError as e:
+        oom = e
+    assert oom is not None
+    assert devplane.classify_device_error(oom) == "oom"
+    assert devplane.classify_device_error(
+        torch.cuda.OutOfMemoryError("plain")
+    ) == "oom"
+
+
+def test_encoder_forward_replays_a_graph_equal_to_eager(gen):
+    """On the card ``SentenceEncoder.forward`` replays one CUDA graph per
+    padded (batch, seq) bucket; the replay gives the eager forward's
+    embeddings bit for bit, on each bucket and on a repeat."""
+    from pathway_tpu_torch.models import EncoderConfig, SentenceEncoder
+
+    graphed = SentenceEncoder(EncoderConfig.bge_small(), batch_size=64)
+    eager = SentenceEncoder(EncoderConfig.bge_small(), batch_size=64)
+
+    def eager_forward(ids, mask):
+        with torch.inference_mode():
+            return eager.model(ids, mask)
+
+    eager.forward = eager_forward
+    texts = ["the cat sat on the mat", "dogs are loyal pets " * 12,
+             "a river of light runs through the stone table " * 6]
+    for batch in (texts[:1], texts, texts * 7, texts):
+        assert (graphed.encode(batch) == eager.encode(batch)).all()
+    assert len(graphed._graphs) >= 3

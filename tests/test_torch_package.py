@@ -1,13 +1,17 @@
 """The PyTorch port's package contract: it imports neither JAX nor the JAX
-package, its entry points run on the card unless asked for the CPU, the
-kernel wrapper has no silent path, and ``chip_smoke.py`` refuses to run
-without a card or without the package beside it."""
+package (not by statement, not by a module path in a string, not after a
+run), its entry points run on the card unless asked for the CPU, its
+``pw`` namespace is the JAX package's, the kernel wrapper has no silent
+path, and ``chip_smoke.py`` refuses to run without a card or without the
+package beside it."""
 
+import io
 import os
 import re
 import shutil
 import subprocess
 import sys
+import tokenize
 
 import pytest
 import torch
@@ -16,9 +20,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "pathway_tpu_torch")
 
 
-def _run(code_or_args, cwd=REPO, timeout=120):
+def _run(code_or_args, cwd=REPO, timeout=120, env=None):
     args = code_or_args if isinstance(code_or_args, list) else ["-c", code_or_args]
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, **(env or {}))
     return subprocess.run(
         [sys.executable, *args], cwd=cwd, env=env, capture_output=True,
         text=True, timeout=timeout,
@@ -34,6 +38,174 @@ def test_import_loads_no_jax_and_no_jax_package():
     )
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+
+
+RUN_SCRIPT = """
+import sys
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.xpacks.llm.mocks import DeterministicMockEmbedder
+from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreServer
+
+docs = pw.debug.table_from_markdown(
+    '''
+    data | meta
+    the cat sat on the mat | a.txt
+    dogs are loyal pets | b.txt
+    '''
+).select(
+    data=pw.this.data,
+    _metadata=pw.apply_with_type(
+        lambda p: pw.Json({"path": p}), pw.Json, pw.this.meta
+    ),
+)
+server = VectorStoreServer(
+    docs, embedder=DeterministicMockEmbedder(8), index_params={"device": "cpu"}
+)
+queries = pw.debug.table_from_markdown(
+    '''
+    query | k
+    the cat sat on the mat | 1
+    ''',
+    schema=server.RetrieveQuerySchema,
+)
+got = []
+pw.io.subscribe(
+    server.retrieve_query(queries),
+    on_change=lambda key, row, time, is_addition: got.extend(
+        r["text"] for r in row["result"].value
+    ),
+)
+pw.run()
+print("GOT", got[0] if got else None)
+bad = [m for m in sys.modules if m in ("jax", "flax", "pathway_tpu")
+       or m.startswith(("jax.", "flax.", "pathway_tpu."))]
+print("BAD", bad)
+"""
+
+
+def test_a_run_loads_no_jax_and_no_jax_package():
+    out = _run(RUN_SCRIPT, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert "GOT the cat sat on the mat" in out.stdout, out.stdout
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def _port_sources():
+    for root, _, files in os.walk(PKG):
+        if "_build" in root:
+            continue
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+
+
+def test_no_string_names_a_jax_package_module():
+    module_path = re.compile(r"\bpathway_tpu\.[A-Za-z_]")
+    offenders = []
+    for path in _port_sources():
+        with open(path, encoding="utf-8") as fh:
+            src = fh.read()
+        for tok in tokenize.generate_tokens(io.StringIO(src).readline):
+            if tok.type == tokenize.STRING and module_path.search(tok.string):
+                offenders.append(f"{os.path.relpath(path, REPO)}:{tok.start[0]}")
+    assert offenders == []
+
+
+def test_no_history_tags_or_tpu_generations_in_the_port():
+    tag = re.compile(r"\bISSUE[ -]\d+|\bv5e\b|v5 lite", re.I)
+    offenders = []
+    for path in [*_port_sources(), os.path.join(PKG, "csrc", "fused_knn.cu")]:
+        with open(path, encoding="utf-8") as fh:
+            for n, line in enumerate(fh, 1):
+                if tag.search(line):
+                    offenders.append(f"{os.path.relpath(path, REPO)}:{n}")
+    assert offenders == []
+
+
+def test_every_registered_knob_is_read_by_the_port():
+    """The knob gate accepts a registered PATHWAY_* variable silently, so a
+    knob that nothing reads would be a setting that does nothing."""
+    from pathway_tpu_torch.analysis.knobs import KNOBS
+
+    registry = os.path.join(PKG, "analysis", "knobs.py")
+    sources = "\n".join(
+        open(p, encoding="utf-8").read() for p in _port_sources() if p != registry
+    )
+    # the registry reads its own escape hatch
+    unread = [n for n in KNOBS if n not in sources and n != "PATHWAY_KNOB_CHECK"]
+    assert unread == []
+
+
+NATIVE_JAX_PACKAGE = """
+import pathway_tpu.native as native
+print("FASTPATH", native.get_fastpath().__file__)
+"""
+
+NATIVE_PORT = '''
+import sys
+import pathway_tpu_torch as pw
+from pathway_tpu_torch import native
+print("FASTPATH", native.get_fastpath().__file__)
+t = pw.debug.table_from_markdown("""
+k | v
+a | 1
+a | 2
+b | 3
+""")
+pw.debug.compute_and_print(
+    t.groupby(pw.this.k).reduce(pw.this.k, s=pw.reducers.sum(pw.this.v)),
+    include_id=False,
+)
+print("BAD", [m for m in sys.modules if m == "pathway_tpu" or m.startswith("pathway_tpu.")])
+'''
+
+
+def test_native_build_dir_override_keeps_the_packages_apart(tmp_path):
+    """Under PATHWAY_NATIVE_BUILD_DIR, which both packages read, the port
+    builds its extensions into a subdirectory of its own: the two
+    packages' extensions share file names but import different engine
+    modules. The JAX package builds first; the port then loads its own
+    build and runs a pipeline without importing the JAX package."""
+    env = {"PATHWAY_NATIVE_BUILD_DIR": str(tmp_path)}
+    first = _run(NATIVE_JAX_PACKAGE, env=env, timeout=300)
+    assert first.returncode == 0, first.stderr
+    second = _run(NATIVE_PORT, env=env, timeout=300)
+    assert second.returncode == 0, second.stderr
+    jax_so = first.stdout.split("FASTPATH ")[1].split()[0]
+    port_so = second.stdout.split("FASTPATH ")[1].split()[0]
+    assert os.path.dirname(jax_so) == str(tmp_path)
+    assert os.path.dirname(port_so) == os.path.join(str(tmp_path), "torch")
+    assert "BAD []" in second.stdout, second.stdout
+    assert "a | 3" in second.stdout and "b | 3" in second.stdout, second.stdout
+
+
+# names of ``pathway_tpu`` that come with later slices of the port: the
+# plan doctor (``analysis`` beyond ``eligibility``/``knobs``) and the demo
+DEFERRED = {"analysis", "analyze", "PlanReport", "demo"}
+
+
+def test_pw_namespace_matches_the_jax_package():
+    import json
+
+    import pathway_tpu_torch
+
+    # each package's namespace as a fresh import declares it: in this
+    # process, submodules other tests imported appear as attributes too
+    out = _run(
+        "import json, pathway_tpu, pathway_tpu_torch\n"
+        "print(json.dumps([dir(pathway_tpu), dir(pathway_tpu_torch)]))",
+        timeout=240,
+    )
+    assert out.returncode == 0, out.stderr
+    jax_names, port_names = json.loads(out.stdout.strip().splitlines()[-1])
+    want = {n for n in jax_names if not n.startswith("_")} - DEFERRED
+    got = {n for n in port_names if not n.startswith("_")}
+    assert want - got == set()
+    for name in sorted(want):
+        value = getattr(pathway_tpu_torch, name)  # lazy names resolve
+        mod = getattr(value, "__module__", None) or getattr(value, "__name__", "")
+        if isinstance(mod, str) and mod.startswith("pathway_tpu"):
+            assert mod.startswith("pathway_tpu_torch"), (name, mod)
 
 
 def test_no_source_file_imports_the_jax_package():
@@ -70,6 +242,45 @@ def test_entry_points_refuse_to_drop_to_cpu(make):
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         eval(make, vars(pt))
+
+
+def _one_vector_column(pt):
+    return pt.debug.table_from_markdown("v\n1").select(
+        v=pt.apply_with_type(lambda x: (1.0, 0.0, 0.0, 0.0), tuple, pt.this.v)
+    ).v
+
+
+DEVICE_ENTRY_POINTS = {
+    "SentenceTransformerEmbedder": lambda pt, kw: (
+        pt.xpacks.llm.embedders.SentenceTransformerEmbedder("tiny", **kw)
+    ),
+    "BruteForceKnnFactory": lambda pt, kw: (
+        pt.indexing.BruteForceKnnFactory(dimensions=4, **kw)
+        .build_inner_index(_one_vector_column(pt))
+        .make_adapter()
+    ),
+    "CrossEncoder": lambda pt, kw: pt.models.CrossEncoder(
+        pt.EncoderConfig.tiny(), **kw
+    ),
+    "CrossEncoderReranker": lambda pt, kw: (
+        pt.xpacks.llm.rerankers.CrossEncoderReranker("tiny", **kw)
+    ),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DEVICE_ENTRY_POINTS))
+def test_dataflow_entry_points_refuse_to_drop_to_cpu(name):
+    import pathway_tpu_torch as pt
+    import pathway_tpu_torch.models  # noqa: F401
+    import pathway_tpu_torch.xpacks.llm.embedders  # noqa: F401
+    import pathway_tpu_torch.xpacks.llm.rerankers  # noqa: F401
+
+    make = DEVICE_ENTRY_POINTS[name]
+    assert make(pt, {"device": "cpu"}) is not None
+    if torch.cuda.is_available():
+        return  # a CUDA device is present: the default device is valid
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make(pt, {})
 
 
 def test_cpu_is_taken_when_asked():
