@@ -23,7 +23,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
             per-stage breakdown of one query and one ingest batch and a
             ``torch.profiler`` trace of them (device time by kernel, busy
             share);
-4. dataflow the repo's live-RAG template (examples/demo-question-answering)
+4. dataflow (run last: its engine serves until the process ends) the
+            repo's live-RAG template (examples/demo-question-answering)
             on the port: 16,384 seeded documents written as files,
             ``pw.io.fs.read`` (streaming) -> ``VectorStoreServer`` with
             ``SentenceTransformerEmbedder("bge-small")`` (seeded weights)
@@ -36,7 +37,35 @@ Phases (each prints one JSON line; any failure exits non-zero):
             the index's own vectors, that the phase launched the KNN
             kernel, and that JAX was never imported; prints the device
             plane's per-site record over the serving window;
-5. report   the ``kernels`` JSON line, then the device line.
+5. sharded  a ``ShardedKnnIndex`` of four shards on the card
+            (``make_mesh(devices=[cuda:0] * 4)``) and a ``KnnShard``, both
+            filled with the same 1,048,576 seeded unit vectors (1 %
+            removed, one exact three-way tie across shards); queries at
+            Q = 1 / 32 / 256, k = 10 and Q = 32, k = 1024 under
+            ``PATHWAY_INDEX_MERGE=gather`` and ``tree`` must give ids and
+            scores bit-identical to the single shard; median search ms
+            (CUDA events) of both, the device part alone, and the launches;
+6. snapshot the filled 2^20-row ``KnnShard`` under a filesystem persistence
+            backend: cut 1 (the full segment), 10,486 rows removed and
+            10,486 new keys added, cut 2 (a delta segment of at most 2 % of
+            cut 1's bytes); the chain restored into a fresh ``KnnShard`` and
+            into a four-shard ``ShardedKnnIndex`` must answer 256 queries
+            (k = 10) bit-identically; bytes and seconds of each cut and
+            restore, peak device memory;
+7. persisted the dataflow template streaming under
+            ``persistence_config=Config(Backend.filesystem(dir),
+            persistence_mode="OPERATOR_PERSISTING")`` in a subprocess over
+            4,096 documents until ``/v1/statistics`` counts them all and
+            ``marker/snapshot_commit`` exists; then 512 more files and a
+            second subprocess on the same directory, which must count
+            4,608 files, write only the new documents' rows to its indexes,
+            embed no old document, and answer 64 ``/v1/retrieve`` requests
+            with one engine search each, in agreement with the plain scan
+            over its indexes (a miss reports why: ``miss_detail``); the
+            restart's time to its first answer and the first run's ingest
+            time;
+8. report   the ``kernels`` JSON line (launches summed over every phase),
+            then the device line.
 
 It needs one CUDA card and the rest of the repository beside it; without
 either it exits non-zero and prints no result.
@@ -76,6 +105,18 @@ DF_CLIENTS = 16
 DF_RETRIEVES = 256
 DF_ANSWERS = 16
 DF_INGEST_TIMEOUT_S = 300
+# the sharded phase: four shards on the one card, the kernels phase's cases
+SHARDS = 4
+SEARCH_REPS = 5
+# the snapshot phase: 1 % of the index removed and as many keys added
+CHURN = 10486
+# the persisted phase: the engine's host-side ingest sets its time (PERF.md),
+# so its corpus is 4,096 documents; the snapshot phase holds the index at
+# full size
+PS_DOCS = 4096
+PS_NEW = 512
+PS_RETRIEVES = 64
+PS_TIMEOUT_S = 420
 
 
 def emit(obj) -> None:
@@ -84,6 +125,11 @@ def emit(obj) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def zero_launches(fk) -> None:
+    for name in fk.LAUNCHES:
+        fk.LAUNCHES[name] = 0
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -342,8 +388,7 @@ def phase_main(pt, fk, seed: int):
     if not torch.isfinite(a).all() or a.shape != (64, cfg.hidden) or enc_cos < 0.999:
         fail(f"encoder: bf16 vs f32 min cosine {enc_cos}")
 
-    for name in fk.LAUNCHES:  # counts of the main path only
-        fk.LAUNCHES[name] = 0
+    zero_launches(fk)  # counts of the main path only
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
@@ -616,8 +661,7 @@ def phase_dataflow(fk, seed: int):
     rag = BaseRAGQuestionAnswerer(llm=IdentityMockChat(), indexer=store, search_topk=6)
     rag.build_server(host="127.0.0.1", port=port)
 
-    for name in fk.LAUNCHES:  # counts of this phase only
-        fk.LAUNCHES[name] = 0
+    zero_launches(fk)  # counts of this phase only
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     run_error: list = []
@@ -762,9 +806,472 @@ def phase_dataflow(fk, seed: int):
     return launches
 
 
+def four_shards():
+    from pathway_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices=["cuda:0"] * SHARDS, axes=("dp",), shape=(SHARDS,))
+
+
+def search_ms(index, q, k) -> float:
+    """Median wall time of ``index.search`` (host work included: the
+    search returns after its readback), on CUDA events."""
+    import torch
+
+    times = []
+    for _ in range(SEARCH_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        index.search(q, k)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def phase_sharded(pt, fk, seed: int):
+    """Four shards on the card against one KnnShard, bit for bit."""
+    import torch
+
+    from pathway_tpu_torch.ops.knn import _normalize
+    from pathway_tpu_torch.parallel import ShardedKnnIndex
+    from pathway_tpu_torch.parallel import sharded_knn as sk
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    torch.cuda.reset_peak_memory_stats()
+    sharded = ShardedKnnIndex(DIM, four_shards())
+    single = pt.KnnShard(DIM, "cos", capacity=CAP)
+    # an exact three-way tie: three kept keys on three shards hold one vector
+    ties: list[int] = []
+    for key in range(1, CAP):
+        if key % 100 and sharded.owner_shard(key) not in {sharded.owner_shard(t) for t in ties}:
+            ties.append(key)
+            if len(ties) == 3:
+                break
+    tie_vec = unit_rows(gen, 1, DIM)[0]
+    fill = {"single": 0.0, "sharded": 0.0}
+    step = 1 << 16
+    for start in range(0, CAP, step):
+        rows = unit_rows(gen, step, DIM)
+        for t in ties:
+            if start <= t < start + step:
+                rows[t - start] = tie_vec
+        keys = range(start, start + step)
+        for name, index in (("single", single), ("sharded", sharded)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            index.add(keys, rows)
+            torch.cuda.synchronize()
+            fill[name] += time.perf_counter() - t0
+    removed = list(range(0, CAP, 100))
+    single.remove(removed)
+    sharded.remove(removed)
+    if len(single) != CAP - len(removed) or len(sharded) != len(single):
+        fail(f"sharded phase holds {len(sharded)} / {len(single)} rows")
+    tie_order = sorted(ties, key=single.key_seq.get)
+
+    cases = []
+    for Q, k in CASES:
+        q = unit_rows(gen, Q, DIM)
+        q[0] = tie_vec
+        cases.append((Q, k, q, single.search(q, k)))
+    # the path: every case under both merges, counted from zero
+    zero_launches(fk)
+    torch.cuda.synchronize()
+    for Q, k, q, want in cases:
+        for merge in ("gather", "tree"):
+            os.environ["PATHWAY_INDEX_MERGE"] = merge
+            got = sharded.search(q, k)
+            if got != want:
+                bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+                fail(f"sharded ({merge}) differs from the single shard at Q={Q}, "
+                     f"k={k}, query {bad}: {got[bad][:3]} vs {want[bad][:3]}")
+            if [key for key, _ in got[0][:3]] != tie_order:
+                fail(f"the three-way tie is not in key_seq order at Q={Q}, k={k}")
+    torch.cuda.synchronize()
+    launches = dict(fk.LAUNCHES)
+
+    rows_out = []
+    for Q, k, q, _ in cases:
+        row = {"Q": Q, "k": k, "single_ms": search_ms(single, q, k)}
+        qn = _normalize(q).contiguous()
+        k_eff = min(k, CAP)
+        row["single_device_ms"] = cuda_ms(lambda: single.topk(qn, k_eff, "dot"), reps=10)
+        used = sharded.rows_in_use()
+        for merge in ("gather", "tree"):
+            os.environ["PATHWAY_INDEX_MERGE"] = merge
+            row[f"{merge}_ms"] = search_ms(sharded, q, k)
+            row[f"{merge}_device_ms"] = cuda_ms(lambda: sk.sharded_topk(
+                qn, [v[:u] for v, u in zip(sharded.vectors, used)],
+                [m[:u] for m, u in zip(sharded.valid, used)], k_eff,
+                merge=merge, local_cap=sharded.local_cap), reps=10)
+        rows_out.append(row)
+    os.environ.pop("PATHWAY_INDEX_MERGE", None)
+    emit({
+        "phase": "sharded", "shards": SHARDS, "live_rows": len(sharded),
+        "local_cap": sharded.local_cap, "rows_used": sharded.rows_used,
+        "shard_fill": sharded.shard_fill(), "fill_s": fill,
+        "searches": rows_out, "bit_identical": True, "launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    })
+    if not launches.get("fused_knn") or not launches.get("topk_merge"):
+        fail(f"the sharded searches did not launch both kernels: {launches}")
+    del sharded
+    torch.cuda.empty_cache()
+    return launches, single
+
+
+def phase_snapshot(pt, fk, single, seed: int):
+    """Cut, delta cut and restore of the filled 2^20-row KnnShard."""
+    import shutil
+
+    import torch
+
+    from pathway_tpu_torch.parallel import ShardedKnnIndex
+    from pathway_tpu_torch.persistence import Backend, Config, PersistenceManager
+    from pathway_tpu_torch.persistence import index_snapshot as isnap
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    rng = np.random.default_rng(seed + 5)
+    pdir = tempfile.mkdtemp(prefix="chip_smoke_snapshot_")
+    pm = PersistenceManager(Config(backend=Backend.filesystem(pdir)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(fk)
+    row = {"phase": "snapshot", "live_rows": len(single), "capacity": single.capacity}
+
+    def cut(tag):
+        t0 = time.perf_counter()
+        with isnap.cut(pm, tag):
+            state = single.snapshot_state()
+        seg = state["segments"][-1]
+        row[f"cut{tag}"] = {"s": time.perf_counter() - t0, "bytes": seg["bytes"],
+                            "rows": seg["rows"], "removes": seg["removes"]}
+        return state
+
+    cut(1)
+    live = np.fromiter(single.key_to_slot, np.int64, len(single))
+    gone = rng.choice(live, size=CHURN, replace=False).tolist()
+    single.remove(gone)
+    single.add(range(CAP, CAP + CHURN), unit_rows(gen, CHURN, DIM))
+    if single.capacity != CAP:
+        fail(f"the churn grew the index to {single.capacity} slots")
+    state = cut(2)
+    share = row["cut2"]["bytes"] / row["cut1"]["bytes"]
+    row["cut2_share_of_cut1"] = share
+
+    q = unit_rows(gen, 256, DIM)
+    want = single.search(q, K)
+    for name, make in (("single", lambda: pt.KnnShard(DIM, "cos")),
+                       ("sharded", lambda: ShardedKnnIndex(DIM, four_shards()))):
+        fresh = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with isnap.cut(pm, 0):
+            fresh.load_state(state)
+        torch.cuda.synchronize()
+        row[f"restore_{name}_s"] = time.perf_counter() - t0
+        for merge in (("gather", "tree") if name == "sharded" else (None,)):
+            if merge:
+                os.environ["PATHWAY_INDEX_MERGE"] = merge
+            if fresh.search(q, K) != want:
+                fail(f"the restored {name} index ({merge}) differs from the live shard")
+        del fresh
+        torch.cuda.empty_cache()
+    os.environ.pop("PATHWAY_INDEX_MERGE", None)
+    torch.cuda.synchronize()
+    row["launches"] = dict(fk.LAUNCHES)
+    row["store_bytes"] = sum(
+        os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(pdir) for f in fs)
+    row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    row["bit_identical"] = True
+    shutil.rmtree(pdir, ignore_errors=True)
+    emit(row)
+    if share > 0.02:
+        fail(f"the delta cut wrote {share:.4f} of the full cut's bytes (> 2 %)")
+    if not all(row["launches"].values()):
+        fail(f"the restored searches did not launch both kernels: {row['launches']}")
+    return row["launches"]
+
+
+PROBE = "a question asked while the index restores"
+
+
+def miss_detail(adapter, qvec, name: str) -> dict:
+    """Why a retrieve missed its own document ``name`` in one index: is
+    the document there, its score, and the K-th best score beside it."""
+    import torch
+
+    shard = adapter.shard
+    key = next((k for k, m in adapter.meta.items()
+                if os.path.basename(str(getattr(m, "value", m).get("path", ""))) == name),
+               None)
+    with shard.lock:
+        slot = shard.key_to_slot.get(key) if key is not None else None
+        q = torch.from_numpy(qvec).to(shard.device)
+        q = q / torch.clamp(torch.linalg.vector_norm(q), min=1e-30)
+        scores = torch.where(shard.valid, shard.vectors @ q, -torch.inf)
+        top = torch.topk(scores, K).values.tolist()
+        own = None if slot is None else float(scores[slot])
+    return {"rows": len(shard), "in_meta": key is not None, "in_index": slot is not None,
+            "own_score": own, "top_scores": top,
+            "rank": None if own is None else int((scores > own).sum())}
+
+
+def persisted_child(folder: str, pdir: str, out: str, n_files: int, queries: list) -> None:
+    """One run of the persisted dataflow template (the ``persisted``
+    phase's subprocess): serve until ``/v1/statistics`` counts ``n_files``
+    and the store holds ``marker/snapshot_commit``, retrieve ``queries``,
+    check every engine search against the plain scan over its index, and
+    write what it saw to ``out``."""
+    t_start = time.perf_counter()
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.models.encoder import SentenceEncoder
+    from pathway_tpu_torch.ops import fused_knn as fk
+    from pathway_tpu_torch.ops.topk import chunked_topk_scores
+    from pathway_tpu_torch.stdlib.indexing import nearest_neighbors as nn_mod
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.mocks import IdentityMockChat
+    from pathway_tpu_torch.xpacks.llm.question_answering import (
+        BaseRAGQuestionAnswerer, RAGClient,
+    )
+    from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreServer
+
+    lock = threading.Lock()
+    embedded: list = []
+    added: list = []
+    searches: list = []
+    encode, add_batch, search = (
+        SentenceEncoder.encode, nn_mod._KnnAdapter.add_batch, nn_mod._KnnAdapter.search)
+
+    def counting_encode(self, texts, *a, **kw):
+        with lock:
+            embedded.extend(texts)
+        return encode(self, texts, *a, **kw)
+
+    def counting_add_batch(self, rows):
+        with lock:
+            added.extend(k for k, _, _ in rows)
+        return add_batch(self, rows)
+
+    def recording_search(self, qs):
+        res = search(self, qs)
+        with lock:
+            for (qdata, limit, _), (keys, _) in zip(qs, res):
+                searches.append((self, np.asarray(qdata, np.float32), limit, keys))
+        return res
+
+    SentenceEncoder.encode = counting_encode
+    nn_mod._KnnAdapter.add_batch = counting_add_batch
+    nn_mod._KnnAdapter.search = recording_search
+    adapters: list = []
+    init = nn_mod._KnnAdapter.__init__
+
+    def keeping_init(self, *a, **kw):
+        init(self, *a, **kw)
+        adapters.append(self)
+
+    nn_mod._KnnAdapter.__init__ = keeping_init
+
+    docs_table = pw.io.fs.read(folder, format="binary", with_metadata=True,
+                               mode="streaming", autocommit_duration_ms=100)
+    store = VectorStoreServer(docs_table, embedder=SentenceTransformerEmbedder("bge-small"))
+    rag = BaseRAGQuestionAnswerer(llm=IdentityMockChat(), indexer=store, search_topk=6)
+    port = free_port()
+    rag.build_server(host="127.0.0.1", port=port)
+    config = pw.persistence.Config(backend=pw.persistence.Backend.filesystem(pdir),
+                                   persistence_mode="OPERATOR_PERSISTING")
+    errors: list = []
+
+    def run():
+        try:
+            pw.run(persistence_config=config)
+        except BaseException as e:
+            errors.append(repr(e))
+
+    t_run = time.perf_counter()
+    threading.Thread(target=run, name="pw.run", daemon=True).start()
+    client = RAGClient(host="127.0.0.1", port=port, timeout=120)
+    first_answer = None
+    count = 0
+    marker = os.path.join(pdir, "marker", "snapshot_commit")
+    while not errors and time.perf_counter() - t_run < PS_TIMEOUT_S:
+        try:
+            if first_answer is None and client.retrieve(PROBE, k=K):
+                first_answer = time.perf_counter()
+            count = int(client.statistics().get("file_count") or 0)
+        except OSError:
+            time.sleep(0.1)  # the gateway is not listening yet
+            continue
+        if count >= n_files and os.path.exists(marker):
+            break
+        time.sleep(0.1)
+    ingest_s = time.perf_counter() - t_run
+    with lock:
+        embedded_ingest = [t for t in embedded if t != PROBE]
+        searches.clear()
+    hits, missed = [], []
+    for text, name in queries:
+        with lock:
+            before = len(searches)
+        res = client.retrieve(text, k=K) if not errors else []
+        got = [os.path.basename(r["metadata"]["path"]) for r in res]
+        hits.append(name in got and len(res) == K)
+        if not hits[-1]:
+            with lock:
+                mine = searches[before:]
+            missed.append({"name": name, "returned": len(res),
+                           "indexes": [miss_detail(a, q, name) for a, q, _, _ in mine]})
+    agree = 0
+    with lock:
+        recorded = list(searches)
+    for adapter, qvec, limit, keys in recorded:
+        shard = adapter.shard
+        q = torch.from_numpy(qvec).to(shard.device)[None]
+        q = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-30)
+        with shard.lock:
+            pv, pi = chunked_topk_scores(q, shard.vectors, shard.valid, limit + 1)
+            want = [shard.slot_to_key.get(int(s)) for s in pi[0, :limit].tolist()]
+        v = pv[0].cpu().numpy()
+        gap = v[:-1] - v[1:]
+        clear = np.minimum(np.r_[np.inf, gap[:limit - 1]], gap) > 1e-5
+        agree += len(keys) == limit and all(g == w for g, w, c in zip(keys, want, clear) if c)
+    torch.cuda.synchronize()
+    with open(out, "w") as f:
+        json.dump({
+            "count": count, "errors": errors, "marker": os.path.exists(marker),
+            "ingest_s": ingest_s,
+            "first_answer_s": None if first_answer is None else first_answer - t_start,
+            "first_answer_after_run_s": (
+                None if first_answer is None else first_answer - t_run),
+            "index_rows_written": len(added), "indexes": len(adapters),
+            "index_rows": [len(a.shard) for a in adapters],
+            "embedded_ingest": embedded_ingest,
+            "recall_own_doc_top10": float(np.mean(hits)) if hits else 0.0,
+            "missed": missed,
+            "engine_searches": len(recorded), "searches_equal_plain": agree,
+            "launches": dict(fk.LAUNCHES),
+        }, f)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def run_persisted_child(folder, pdir, out, n_files, queries) -> dict:
+    spec = os.path.join(os.path.dirname(out), os.path.basename(out) + ".queries.json")
+    with open(spec, "w") as f:
+        json.dump(queries, f)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--persisted-child",
+         folder, pdir, out, str(n_files), spec],
+        capture_output=True, text=True, timeout=PS_TIMEOUT_S + 120,
+    )
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.exists(out):
+        fail(f"persisted child exited {proc.returncode}: {proc.stderr[-3000:]}")
+    with open(out) as f:
+        res = json.load(f)
+    res["process_s"] = wall
+    if res["errors"]:
+        fail(f"persisted child: pw.run raised {res['errors'][0]}")
+    if res["count"] != n_files or not res["marker"]:
+        fail(f"persisted child counted {res['count']} of {n_files} files "
+             f"(marker written: {res['marker']}) within {PS_TIMEOUT_S} s")
+    return res
+
+
+def phase_persisted(seed: int):
+    """The dataflow template persisted, stopped and restarted on more files."""
+    import shutil
+
+    from pathway_tpu_torch.models.tokenizer import VOCAB_ASSET
+
+    with open(VOCAB_ASSET, encoding="utf-8") as f:
+        words = [w.strip() for w in f if w.strip().isalpha()]
+    rng = np.random.default_rng(seed + 13)
+    texts = make_docs(words, rng, PS_DOCS + PS_NEW)
+    names = [f"doc{i:06d}.txt" for i in range(PS_DOCS + PS_NEW)]
+    root = tempfile.mkdtemp(prefix="chip_smoke_persisted_")
+    folder, pdir = os.path.join(root, "docs"), os.path.join(root, "store")
+    os.makedirs(folder)
+
+    def write(lo, hi):
+        for i in range(lo, hi):
+            with open(os.path.join(folder, names[i]), "w", encoding="utf-8") as f:
+                f.write(texts[i])
+
+    def pick(lo, hi, n):
+        return [(texts[i], names[i]) for i in rng.choice(np.arange(lo, hi), n, replace=False)]
+
+    write(0, PS_DOCS)
+    first = run_persisted_child(folder, pdir, os.path.join(root, "run1.json"),
+                                PS_DOCS, pick(0, PS_DOCS, PS_RETRIEVES))
+    segments = sorted(
+        os.path.relpath(os.path.join(d, f), pdir)
+        for d, _, fs in os.walk(os.path.join(pdir, "index_segment")) for f in fs)
+    write(PS_DOCS, PS_DOCS + PS_NEW)
+    half = PS_RETRIEVES // 2
+    second = run_persisted_child(
+        folder, pdir, os.path.join(root, "run2.json"), PS_DOCS + PS_NEW,
+        pick(0, PS_DOCS, half) + pick(PS_DOCS, PS_DOCS + PS_NEW, half))
+    n_idx = first["indexes"]
+    new_texts = set(texts[PS_DOCS:])
+    launches = {k: first["launches"].get(k, 0) + second["launches"].get(k, 0)
+                for k in set(first["launches"]) | set(second["launches"])}
+    row = {
+        "phase": "persisted", "docs": PS_DOCS, "new_docs": PS_NEW,
+        "first_ingest_s": first["ingest_s"],
+        "first_ingest_docs_per_s": PS_DOCS / first["ingest_s"],
+        "restart_first_answer_s": second["first_answer_s"],
+        "restart_first_answer_after_run_s": second["first_answer_after_run_s"],
+        "restart_ingest_s": second["ingest_s"],
+        "process_s": [first["process_s"], second["process_s"]],
+        "indexes": n_idx, "index_rows": second["index_rows"],
+        "rows_written": [first["index_rows_written"], second["index_rows_written"]],
+        "embedded_at_ingest": [len(first["embedded_ingest"]), len(second["embedded_ingest"])],
+        "segments_after_first_run": segments[:8], "n_segments": len(segments),
+        "recall_own_doc_top10": [first["recall_own_doc_top10"],
+                                 second["recall_own_doc_top10"]],
+        "searches_equal_plain": [
+            f"{r['searches_equal_plain']}/{r['engine_searches']}" for r in (first, second)],
+        "launches": launches,
+        "missed": [first["missed"], second["missed"]],
+    }
+    emit(row)
+    shutil.rmtree(root, ignore_errors=True)
+    if not segments:
+        fail("the first run committed no index segment")
+    if n_idx < 1 or first["index_rows_written"] != PS_DOCS * n_idx:
+        fail(f"the first run wrote {first['index_rows_written']} index rows to {n_idx} indexes")
+    if second["index_rows_written"] != PS_NEW * n_idx:
+        fail(f"the restart wrote {second['index_rows_written']} index rows, "
+             f"not the {PS_NEW} new documents' to each of {n_idx} indexes")
+    if set(second["embedded_ingest"]) != new_texts:
+        old = len(set(second["embedded_ingest"]) - new_texts)
+        fail(f"the restart embedded {old} texts that are not new documents")
+    if any(n != PS_DOCS + PS_NEW for n in second["index_rows"]):
+        fail(f"the restored indexes hold {second['index_rows']} rows")
+    for r in (first, second):
+        if r["recall_own_doc_top10"] < RECALL_MIN:
+            fail(f"persisted recall of the own document {r['recall_own_doc_top10']}")
+        # one engine search per retrieve: a request keyed onto a row the
+        # restored state still held would add the searches of that row
+        if r["engine_searches"] != PS_RETRIEVES or r["searches_equal_plain"] != PS_RETRIEVES:
+            fail(f"persisted searches: {r['searches_equal_plain']} of "
+                 f"{r['engine_searches']} equal the plain scan, for {PS_RETRIEVES} retrieves")
+    if not launches.get("fused_knn") or not launches.get("topk_merge"):
+        fail(f"the persisted runs did not launch both kernels: {launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # the persisted phase runs this script again as its subprocess:
+    # FOLDER STORE OUT N_FILES QUERIES.json
+    ap.add_argument("--persisted-child", nargs=5, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -782,6 +1289,11 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in IEEE fp32
     torch.backends.cudnn.allow_tf32 = False
+    if args.persisted_child:
+        folder, pdir, out, n_files, spec = args.persisted_child
+        with open(spec) as f:
+            queries = json.load(f)
+        persisted_child(folder, pdir, out, int(n_files), queries)
 
     smi = phase_build(_build)
     kind = torch.cuda.get_device_name(0)
@@ -792,11 +1304,17 @@ def main() -> int:
         fail(f"no data-sheet peaks for {kind!r} in internals/device.py")
     peaks = (rates["bandwidth"], rates["fp32"], rates["tf32"])
     kern = phase_kernels(fk, topk, peaks, args.seed)
-    main_launches = phase_main(pt, fk, args.seed)
-    df_launches = phase_dataflow(fk, args.seed)
+    per_phase = [phase_main(pt, fk, args.seed)]
+    sharded_launches, single = phase_sharded(pt, fk, args.seed)
+    per_phase.append(sharded_launches)
+    per_phase.append(phase_snapshot(pt, fk, single, args.seed))
+    del single
+    torch.cuda.empty_cache()
+    per_phase.append(phase_persisted(args.seed))
+    # last: its pw.run serves (and rescans its folder) until the process ends
+    per_phase.append(phase_dataflow(fk, args.seed))
     # the kernels line counts the launches of every path this run drove
-    launches = {k: main_launches.get(k, 0) + df_launches.get(k, 0)
-                for k in set(main_launches) | set(df_launches)}
+    launches = {k: sum(p.get(k, 0) for p in per_phase) for k in fk.LAUNCHES}
 
     main_q = kern[(256, K)]
     src = "pathway_tpu_torch/csrc/fused_knn.cu"

@@ -129,11 +129,19 @@ KNOBS: dict[str, Knob] = {
            "strict alternation; 2 is classic double buffering.",
            lo=1, hi=64),
         _k("PATHWAY_INDEX_SHARDS", "int", None,
-           "Back vector-index adapters with the pod-sharded HBM index "
-           "over an N-device data-parallel mesh (one corpus shard per "
-           "chip, queries broadcast, per-shard fused matmul+top-k, "
-           "merged across devices). Unset/0/1 = single-chip shard; ignored "
-           "when fewer than N devices are visible.", lo=0, hi=4096),
+           "Back vector-index adapters with the sharded index over an "
+           "N-card data-parallel mesh (one corpus shard per card, queries "
+           "sent to every shard, a fused KNN kernel launch per shard, the "
+           "partials merged on the first card). Unset/0/1 = single-card "
+           "shard; ignored when fewer than N CUDA devices are visible.",
+           lo=0, hi=4096),
+        _k("PATHWAY_INDEX_MERGE", "enum", "auto",
+           "Cross-shard top-k merge of the sharded index: 'tree' = "
+           "recursive doubling, pairs of shards merged lower rank first "
+           "(pow2 shard counts), 'gather' = one merge of every shard's "
+           "partial in shard order, 'auto' = tree when the shard count is "
+           "a power of two, else gather. On CUDA both run the merge "
+           "kernel.", choices=("auto", "tree", "gather")),
         # -- device fault domain --------------------------------
         _k("PATHWAY_DEVICE_DISPATCH_TIMEOUT_S", "float", 0.0,
            "Watchdog deadline (seconds) on supervised device dispatch "
@@ -153,17 +161,19 @@ KNOBS: dict[str, Knob] = {
            lo=0, hi=64),
         _k("PATHWAY_DEVICE_SNAPSHOT", "bool", True,
            "Epoch-aligned incremental index snapshots: under "
-           "OPERATOR_PERSISTING, HBM index shards write per-epoch delta "
-           "segments (only slots touched since the last cut) through "
-           "the persistence store at the same marker the mesh commits; "
-           "restore rebuilds the HBM shard from segments instead of "
-           "re-embedding. 0 falls back to inline full-state snapshots."),
+           "OPERATOR_PERSISTING, device index shards write per-epoch "
+           "delta segments (only the rows touched since the last cut, "
+           "copied from the card) through the persistence store at the "
+           "same marker the mesh commits; restore rewrites the card's "
+           "buffers from the segments instead of re-embedding. 0 falls "
+           "back to inline full-state snapshots."),
         _k("PATHWAY_INDEX_SNAPSHOT_SEGMENTS", "int", 8,
            "Segment-chain length at which an index snapshot compacts: "
            "once an index's manifest references this many delta "
            "segments, the next cut folds the chain into one full "
-           "segment (TxnDeltaSink-style folded-manifest compaction) so "
-           "restore cost stays bounded.", lo=1, hi=4096),
+           "segment (TxnDeltaSink-style folded-manifest compaction: the "
+           "whole index copied from the card once) so restore cost "
+           "stays bounded.", lo=1, hi=4096),
         _k("PATHWAY_TERMINATE_ON_ERROR", "bool", True,
            "Abort the run on the first data error instead of poisoning "
            "rows to ERROR."),

@@ -301,6 +301,21 @@ def knn_search_bucket(
     return (query_pad(n), capacity, k_eff)
 
 
+def sharded_search_bucket(
+    n: int, n_shards: int, local_cap: int, k: int, chunk: int | None
+) -> tuple:
+    """Shape key of one sharded index search: effective k mirrors
+    ``ShardedKnnIndex.search``'s clamp (per-shard partial k capped by the
+    shard's rows, merged up to the total capacity)."""
+    k_eff = min(k, n_shards * min(local_cap, chunk or local_cap))
+    return (query_pad(n), n_shards * local_cap, k_eff)
+
+
+def sharded_write_bucket(nrows: int, capacity: int) -> tuple:
+    """Shape key of one sharded index write."""
+    return (nrows, capacity)
+
+
 def encoder_bucket(nb: int, Lb: int, compact: bool) -> tuple:
     """Shape key of one encoder forward."""
     return (nb, Lb, bool(compact))

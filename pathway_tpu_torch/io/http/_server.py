@@ -365,6 +365,7 @@ class RestServerSubject(ConnectorSubject):
         self.request_validator = request_validator
         self._tasks: dict[Pointer, asyncio.Future] = {}
         self._seq = 0
+        self._key_salt = int.from_bytes(os.urandom(8), "little")
         self._lock = threading.Lock()
         # gateway knobs: explicit args win, then the serve/REST env knobs
         self.window_s = (
@@ -598,6 +599,21 @@ class RestServerSubject(ConnectorSubject):
             self.serve_metrics.set_breaker(state)
 
     # -- request path (webserver event loop) ------------------------------
+
+    def _request_key(self, rid: str | None) -> Pointer:
+        """The dataflow key of a request: the frontend's request id when
+        it stamped one, else this server's salt and a counter. The salt,
+        drawn per server, keeps keys unique across runs: a persisted
+        program restores operator state that can still hold the rows of
+        the previous run's last requests, and a counter that restarts at
+        0 would key a new request onto one of them (its answer then holds
+        both requests' hits)."""
+        if rid is not None:
+            return ref_scalar("rest", self.route, "rid", rid)
+        with self._lock:
+            self._seq += 1
+            return ref_scalar("rest", self.route, self._key_salt, self._seq)
+
     async def _handle(self, request):
         from aiohttp import web
 
@@ -745,12 +761,7 @@ class RestServerSubject(ConnectorSubject):
             if self._frontend_mode
             else None
         )
-        if rid is not None:
-            key = ref_scalar("rest", self.route, "rid", rid)
-        else:
-            with self._lock:
-                self._seq += 1
-                key = ref_scalar("rest", self.route, self._seq)
+        key = self._request_key(rid)
         future: asyncio.Future = asyncio.get_event_loop().create_future()
         self._tasks[key] = future
         pending = _PendingRequest(key, values, future)

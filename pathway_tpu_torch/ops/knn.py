@@ -15,6 +15,12 @@ each launch runs under ``supervised_dispatch`` and, while the device plane
 is armed, inside one timed dispatch record (``internals/device.py``).
 Growth passes the ``device.oom`` fault point (site ``knn.grow``); a refused
 growth leaves the index serving at its committed capacity.
+
+Snapshots: every upsert marks its key dirty and every remove marks it
+removed, so a persistence cut writes only the rows touched since the
+last one (``persistence/index_snapshot.py``); a restore rewrites the
+committed rows as they were stored, so scores and the ``key_seq``
+tie-break come back bit-identical.
 """
 
 from __future__ import annotations
@@ -125,6 +131,18 @@ class KnnShard:
         # dispatch and drop hits whose slot was freed later.
         self.remove_epoch = 0
         self.slot_freed_epoch = np.full(self.capacity, -1, np.int64)
+        # per-epoch dirty tracking for delta snapshots plus the committed
+        # segment chain this index extends. _dirty/_dirty_removed are
+        # insertion-ordered key sets (dicts), mutually exclusive per key:
+        # a re-added key leaves the removed set, a removed key leaves the
+        # dirty set.
+        from pathway_tpu_torch.persistence import index_snapshot as _isnap
+
+        self.snapshot_name = _isnap.next_index_name("knn")
+        self._dirty: dict[Any, None] = {}
+        self._dirty_removed: dict[Any, None] = {}
+        self._segments: list[dict] = []
+        self._retired: list[list[str]] = []
 
     # device sites reachable through this index as an external-index
     # adapter
@@ -200,6 +218,11 @@ class KnnShard:
                 self.key_seq[key] = self._next_seq
                 self._next_seq += 1
             slots.append(slot)
+            # every upserted key is dirty for the next snapshot cut; this
+            # also captures the fused ingest chain, which assigns slots
+            # here before its encoder + write launch
+            self._dirty[key] = None
+            self._dirty_removed.pop(key, None)
         return np.asarray(slots, dtype=np.int64)
 
     def _write_slots(self, slots: np.ndarray, rows: torch.Tensor, valid: bool,
@@ -253,6 +276,8 @@ class KnnShard:
                 self.key_seq.pop(key, None)
                 self.free_slots.append(slot)
                 slots.append(slot)
+                self._dirty_removed[key] = None
+                self._dirty.pop(key, None)
             if not slots:
                 return
             self.remove_epoch += 1
@@ -263,6 +288,63 @@ class KnnShard:
                 torch.zeros((len(slots), self.dimension), device=self.device),
                 False,
             )
+
+    # -- snapshot / restore -----------------------------------------------
+    def snapshot_state(self, *, extra=None) -> dict:
+        """Node state for the current persistence cut: a delta-segment
+        manifest when a cut context is armed (persistence/index_snapshot),
+        an inline full state otherwise. ``extra`` is an optional
+        key->payload mapping that rides the segments (adapter metadata)."""
+        from pathway_tpu_torch.persistence import index_snapshot as _isnap
+
+        return _isnap.snapshot_index(self, extra=extra)
+
+    def load_state(self, state: dict) -> dict:
+        """Rebuild the device buffers and host maps from a committed
+        snapshot (manifest chain or inline state) instead of re-embedding;
+        returns the folded per-key extra payloads."""
+        from pathway_tpu_torch.persistence import index_snapshot as _isnap
+
+        return _isnap.restore_index(self, state)
+
+    def _load_entries(self, entries: list) -> None:
+        """Replace the whole corpus with ``[(key, seq, vector), ...]``.
+        Caller holds ``self.lock``. Vectors are as committed (already
+        normalized for cos), so the rewrite uses ``normalize=False``, in
+        one batched ``index_copy_`` on the shard's device."""
+        n = len(entries)
+        self.capacity = pow2_capacity(max(n, _MIN_CAPACITY))
+        self.key_to_slot = {}
+        self.slot_to_key = {}
+        self.key_seq = {}
+        # the old corpus (and its mint position) is gone; restore_index
+        # re-seats _next_seq from the snapshot so inserts after a restore
+        # mint the same sequences as the uninterrupted run
+        self._next_seq = 0
+        self.free_slots = list(range(self.capacity - 1, -1, -1))
+        self.remove_epoch = 0
+        self.slot_freed_epoch = np.full(self.capacity, -1, np.int64)
+        # drop the old buffers before allocating the new ones
+        self.vectors = self.valid = self.sq_norms = None
+        self.vectors = torch.zeros(
+            (self.capacity, self.dimension), dtype=torch.float32, device=self.device
+        )
+        self.valid = torch.zeros(self.capacity, dtype=torch.bool, device=self.device)
+        self.sq_norms = torch.zeros(
+            self.capacity, dtype=torch.float32, device=self.device
+        )
+        if not n:
+            return
+        # slots pop from the free list in ascending order: 0 .. n-1
+        slots = np.arange(n, dtype=np.int64)
+        del self.free_slots[self.capacity - n:]
+        rows = np.empty((n, self.dimension), np.float32)
+        for i, (key, seq, row) in enumerate(entries):
+            self.key_to_slot[key] = i
+            self.slot_to_key[i] = key
+            self.key_seq[key] = int(seq)
+            rows[i] = row
+        self._write_slots(slots, torch.from_numpy(rows).to(self.device), True)
 
     # -- search -----------------------------------------------------------
     def topk(self, queries: torch.Tensor, k_eff: int, metric: str):
@@ -322,24 +404,33 @@ class KnnShard:
                 bytes_accessed=acc,
                 transfer_bytes=nbytes_of(queries, vals, idx),
             )
-        out: list[list[tuple[Any, float]]] = []
-        for qi in range(n):
-            hits = []
-            for vv, slot in zip(vals[qi], idx[qi]):
-                if not np.isfinite(vv):
-                    continue
-                slot = int(slot)
-                # slot freed after our dispatch (possibly reused by a new
-                # key): this hit's key mapping is gone — drop it
-                if self.slot_freed_epoch[slot] > epoch:
-                    continue
-                key = self.slot_to_key.get(slot)
-                if key is None:
-                    continue
-                hits.append((key, float(vv)))
-            # deterministic tie-break over ALL k_eff candidates before
-            # truncating: equal scores order by insertion sequence, so the
-            # result never depends on slot layout
-            hits.sort(key=lambda t: (-t[1], self.key_seq.get(t[0], 0)))
-            out.append(hits[:k])
-        return out
+        return resolve_hits(self, vals, idx, k, epoch)
+
+
+def resolve_hits(index, vals, idx, k: int, epoch: int) -> list:
+    """Host side of a search: per query, the ``(key, score)`` hits of the
+    ``[Q, k_eff]`` values and slots read back from the device, sorted by
+    descending score, equal scores by insertion sequence, cut to ``k``.
+    Shared by ``KnnShard`` and ``ShardedKnnIndex``."""
+    out: list[list[tuple[Any, float]]] = []
+    for qi in range(vals.shape[0]):
+        hits = []
+        for vv, slot in zip(vals[qi], idx[qi]):
+            if not np.isfinite(vv):
+                continue
+            slot = int(slot)
+            # slot freed after our dispatch (possibly reused by a new
+            # key): this hit's key mapping is gone — drop it
+            if index.slot_freed_epoch[slot] > epoch:
+                continue
+            key = index.slot_to_key.get(slot)
+            if key is None:
+                continue
+            hits.append((key, float(vv)))
+        # deterministic tie-break over ALL k_eff candidates before
+        # truncating: equal scores order by insertion sequence, so the
+        # result never depends on slot layout (which a sharded index
+        # lays out differently)
+        hits.sort(key=lambda t: (-t[1], index.key_seq.get(t[0], 0)))
+        out.append(hits[:k])
+    return out

@@ -6,7 +6,9 @@ the full [n_queries, capacity] score matrix; the plain version scores in
 chunks and merges partial top-k results. ``chunked_topk_scores`` is also
 the plain PyTorch version of the hand-written KNN kernel
 (``ops/fused_knn.py``): the CPU path, and what the kernel is held against
-on the card.
+on the card. The same merge is the reduction step of the global top-k
+across index shards (``tree_merge_topk``, used by
+``parallel/sharded_knn.py``).
 
 Ties. ``jax.lax.top_k`` breaks ties by position (lower index first);
 ``torch.topk`` does not promise that (``topk([1,2,2,2,0], 2)`` returns
@@ -16,10 +18,11 @@ sort and a slice, which is positional.
 Precision. Scores are IEEE fp32, the JAX package's
 ``precision="highest"``: TF32 is switched off for the product
 (``torch.backends.cuda.matmul.allow_tf32 = False``), as the hand-written
-kernel never uses it.
-
-``tree_merge_topk`` (the cross-shard merge) belongs to the sharded-index
-slice.
+kernel never uses it. On the CPU the BLAS picks its kernel, and so its
+rounding, by the product's shape; the plain product is therefore taken
+one fixed-shape granule of ``GRANULE`` database rows at a time, which
+scores a row the same wherever it sits (in one shard or in any shard of
+a sharded index).
 """
 
 from __future__ import annotations
@@ -56,6 +59,58 @@ def merge_topk(vals_a, idx_a, vals_b, idx_b, k: int):
     idx = torch.cat([idx_a, idx_b], dim=-1)
     top_vals, pos = _topk_positional(vals, k)
     return top_vals, torch.gather(idx, -1, pos)
+
+
+def to_device_after(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``. Between two cards the copy is ordered after
+    the work queued on ``t``'s card: an event recorded on that card's
+    current stream, waited on by ``device``'s current stream."""
+    if t.device == device:
+        return t
+    if t.device.type == "cuda" and device.type == "cuda":
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(t.device))
+        torch.cuda.current_stream(device).wait_event(ev)
+        return t.to(device, non_blocking=True)
+    return t.to(device)
+
+
+def merge_pair(vals_a, idx_a, vals_b, idx_b, k: int):
+    """One two-list merge on ``vals_a``'s device, ``a`` first on ties: the
+    hand-written merge kernel on CUDA (``fused_knn.topk_merge`` over the
+    two lists in order), the plain ``merge_topk`` on the CPU."""
+    dev = vals_a.device
+    vals_b, idx_b = to_device_after(vals_b, dev), to_device_after(idx_b, dev)
+    if dev.type == "cuda":
+        from pathway_tpu_torch.ops.fused_knn import topk_merge
+
+        return topk_merge(
+            torch.stack([vals_a, vals_b]), torch.stack([idx_a, idx_b]), k
+        )
+    return merge_topk(vals_a, idx_a, vals_b, idx_b, k)
+
+
+def tree_merge_topk(vals, idx, k: int):
+    """Global top-k of a power-of-two list of per-shard partials (values
+    desc, ``[q, k']`` each, in shard order) by recursive doubling: round
+    ``step`` merges the partials of ranks ``r`` and ``r + step`` on
+    rank ``r``'s device, the lower rank first, so ties resolve in shard
+    order like the gather merge. It is the reduction of the JAX package's
+    butterfly (every rank there ends with this same answer): log2(n)
+    rounds of two-list merges. Returns (values [q, k], indices [q, k])
+    on the first partial's device."""
+    n = len(vals)
+    if n == 0 or n & (n - 1):
+        raise ValueError(f"tree_merge_topk needs a power-of-two list, got {n}")
+    vals, idx = list(vals), list(idx)
+    step = 1
+    while step < n:
+        for r in range(0, n, 2 * step):
+            vals[r], idx[r] = merge_pair(
+                vals[r], idx[r], vals[r + step], idx[r + step], k
+            )
+        step *= 2
+    return vals[0], idx[0]
 
 
 _SCORES_BUDGET_BYTES = 1 << 28  # 256 MB of f32 scores per block
@@ -143,8 +198,27 @@ def topk_scan_cost(
     return flops, bytes_accessed
 
 
+GRANULE = 256  # database rows per CPU product, one fixed shape
+
+
+def _dot_scores(queries, db):
+    """``queries @ db.T``; on the CPU one ``[q, GRANULE]`` product per
+    granule of rows, the last one padded with zero rows, so a row's score
+    does not depend on how many rows it is scored with."""
+    if db.device.type != "cpu":
+        return queries @ db.T
+    n = db.shape[0]
+    out = queries.new_empty((queries.shape[0], n + (-n % GRANULE)))
+    for base in range(0, n, GRANULE):
+        blk = db[base:base + GRANULE]
+        if blk.shape[0] < GRANULE:
+            blk = torch.cat([blk, blk.new_zeros((GRANULE - blk.shape[0], blk.shape[1]))])
+        out[:, base:base + GRANULE] = queries @ blk.T
+    return out[:, :n]
+
+
 def _block_scores(queries, db_block, sq_norms_block, metric):
-    scores = queries @ db_block.T
+    scores = _dot_scores(queries, db_block)
     if metric == "l2sq":
         qn = torch.sum(queries * queries, dim=-1, keepdim=True)
         scores = 2.0 * scores - qn - sq_norms_block[None, :]

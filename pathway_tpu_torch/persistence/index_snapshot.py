@@ -5,14 +5,14 @@ The mesh plane commits consistent cuts through a two-phase marker
 (``persistence/__init__.py write_marker``); device-resident index state
 (``ops/knn.KnnShard``, ``parallel/sharded_knn.ShardedKnnIndex``) rides
 the SAME cut as *delta segments*: at each snapshot the index transfers
-only the HBM rows touched since the last cut (device->host gather of the
+only the device rows touched since the last cut (device->host gather of the
 dirty slots), writes them as one durable segment object, and returns a
 tiny *manifest* (the segment chain) as its node state. The manifest is
 what the runtime pickles into ``operator_snapshot/r{rank}/{tag}`` — it
 becomes visible exactly when the marker moves, so a crash between
 segment write and marker leaves only an orphan object the next cut at
 the same tag atomically overwrites. Restore folds the committed chain
-back into HBM instead of re-embedding the corpus (the ≥10x bar the
+back into device memory instead of re-embedding the corpus (the ≥10x bar the
 device chaos smoke pins), and an N→M re-shard re-buckets folded entries
 through the same ``shard_hash``/``shard_owner`` mint the exchange plane
 uses.
@@ -159,18 +159,37 @@ def _read_segment(persistence, key: str) -> dict | None:
 # -- snapshot ---------------------------------------------------------------
 
 def _gather_rows(index, keys: list) -> np.ndarray:
-    """Device->host transfer of ONLY the named keys' HBM rows (the
-    whole point of delta segments: per-cut traffic scales with the
-    epoch's dirty set, not corpus size)."""
+    """Device->host transfer of ONLY the named keys' rows (the whole
+    point of delta segments: per-cut traffic scales with the epoch's
+    dirty set, not corpus size). ``index.vectors`` is one buffer (a
+    ``KnnShard``) or one buffer per shard (a ``ShardedKnnIndex``, global
+    slot = shard * rows per shard + local slot): one gather on each
+    shard's device, then one host copy."""
     if not keys:
         return np.zeros((0, index.dimension), np.float32)
     import torch
 
+    buffers = index.vectors
+    if isinstance(buffers, torch.Tensor):
+        buffers = [buffers]
     slots = torch.as_tensor(
-        [index.key_to_slot[k] for k in keys], dtype=torch.int64,
-        device=index.vectors.device,
+        np.fromiter((index.key_to_slot[k] for k in keys), np.int64, len(keys))
     )
-    return index.vectors[slots].to("cpu", torch.float32).numpy()
+    if len(buffers) == 1:
+        return buffers[0][slots.to(buffers[0].device)].cpu().numpy()
+    per = buffers[0].shape[0]
+    owner, local = slots // per, slots % per
+    out = None
+    for s, buf in enumerate(buffers):
+        pos = (owner == s).nonzero().flatten()
+        if not len(pos):
+            continue
+        rows = buf[local[pos].to(buf.device)]
+        if out is None:
+            out = torch.empty((len(keys), index.dimension), dtype=torch.float32,
+                              device=buf.device)
+        out[pos.to(out.device)] = rows.to(out.device)
+    return out.cpu().numpy()
 
 
 def _entries_payload(index, keys: list, extra) -> dict:
@@ -334,7 +353,7 @@ def _resolve_state(state: dict, persistence) -> tuple[dict, int, list, bool]:
 
 
 def restore_index(index, state: dict) -> dict:
-    """Rebuild the index's HBM shards from a committed state; returns
+    """Rebuild the index's device shards from a committed state; returns
     the folded per-key extra payloads (the adapter's metadata). Restored
     rows are re-written with ``normalize=False`` — segments carry the
     rows exactly as stored, so scores (and the ``key_seq`` tie-break)

@@ -7,12 +7,17 @@ USearchKnn :65 and their factories).
 searched by the hand-written fused KNN kernel, csrc/fused_knn.cu).
 ``device=`` picks where the shard lives: None is the card, and without
 CUDA the caller passes ``device="cpu"`` (the kernel's plain PyTorch
-version). The reference's USearchKnn wraps a host-CPU HNSW
-(usearch_integration.rs:20); ``UsearchKnn`` here is backed by the C++
-HNSW (native/hnsw.cpp) and falls back to the exact device scan when no
-toolchain is present. The mesh-sharded index (``mesh=``,
-``PATHWAY_INDEX_SHARDS``) belongs to a later slice of the port and raises
-``NotImplementedError`` here.
+version). ``mesh=`` (a ``parallel.make_mesh`` mesh, or
+``PATHWAY_INDEX_SHARDS=N`` with N cards visible) spreads the index over
+one shard per mesh device instead (pathway_tpu_torch.parallel.
+ShardedKnnIndex); without CUDA the caller passes a CPU mesh
+(``make_mesh(devices=["cpu"] * N)``). Under ``OPERATOR_PERSISTING`` both
+write epoch-aligned delta segments of the index at every persistence cut
+and a restart restores them instead of re-embedding the corpus
+(persistence/index_snapshot.py). The reference's USearchKnn wraps a
+host-CPU HNSW (usearch_integration.rs:20); ``UsearchKnn`` here is backed
+by the C++ HNSW (native/hnsw.cpp) and falls back to the exact device scan
+when no toolchain is present.
 """
 
 from __future__ import annotations
@@ -170,24 +175,12 @@ class _HnswAdapter:
         return out
 
 
-_SHARDED_SLICE = (
-    "the sharded KNN index (parallel/sharded_knn.py, parallel/mesh.py) "
-    "is not ported to pathway_tpu_torch yet; it comes with the "
-    "sharded-index slice of the port"
-)
-_SNAPSHOT_SLICE = (
-    "index snapshots of the device KNN shard are not ported to "
-    "pathway_tpu_torch yet; they come with the index-snapshot slice of "
-    "the port"
-)
-
-
 def _auto_mesh():
-    """PATHWAY_INDEX_SHARDS=N (N>1) asks for the sharded index over N
-    cards — one shard of the corpus per card. Returns None (single-card
-    KnnShard) when unset, 0/1, malformed, or when fewer than N CUDA
-    devices are visible; raises NotImplementedError otherwise (the
-    sharded index is a later slice)."""
+    """PATHWAY_INDEX_SHARDS=N (N>1): back the adapter with the sharded
+    index over an N-card data-parallel mesh without any code change — one
+    shard of the corpus per card. Returns None (single-card KnnShard) when
+    unset, 0/1, malformed, or when fewer than N CUDA devices are visible:
+    it never lays N shards on one card by itself."""
     raw = os.environ.get("PATHWAY_INDEX_SHARDS", "").strip()
     if not raw:
         return None
@@ -201,7 +194,9 @@ def _auto_mesh():
 
     if torch.cuda.device_count() < n:
         return None
-    raise NotImplementedError(f"PATHWAY_INDEX_SHARDS={n}: {_SHARDED_SLICE}")
+    from pathway_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n, axes=("dp",), shape=(n,))
 
 
 class _KnnAdapter:
@@ -214,16 +209,19 @@ class _KnnAdapter:
         if mesh is None:
             mesh = _auto_mesh()
         if mesh is not None:
-            raise NotImplementedError(f"mesh={mesh!r}: {_SHARDED_SLICE}")
-        from pathway_tpu_torch.ops.knn import KnnShard
+            from pathway_tpu_torch.parallel.sharded_knn import ShardedKnnIndex
 
-        self.shard = KnnShard(dimension, metric, capacity=capacity, device=device)
+            self.shard = ShardedKnnIndex(dimension, mesh, metric=metric)
+        else:
+            from pathway_tpu_torch.ops.knn import KnnShard
+
+            self.shard = KnnShard(dimension, metric, capacity=capacity, device=device)
         self.meta: dict[Any, Any] = {}
         self.filter_errors = _FilterErrorLog()
 
     def device_sites(self) -> tuple:
-        """Registered device-site names this adapter dispatches through
-       : the Device Doctor's reachability hook, forwarded
+        """Registered device-site names this adapter dispatches through:
+        the Device Doctor's reachability hook, forwarded
         from the wrapped shard (knn.write/search or the sharded pair)."""
         return tuple(getattr(self.shard, "device_sites", ()) or ())
 
@@ -254,12 +252,24 @@ class _KnnAdapter:
 
     # -- operator-snapshot hooks -------------------------------------------
     def snapshot_state(self):
-        """Operator snapshots of the device index (epoch-aligned delta
-        segments) are a later slice of the port."""
-        raise NotImplementedError(_SNAPSHOT_SLICE)
+        """Delegate to the shard's epoch-aligned delta snapshot: per-key
+        filter metadata rides the segments as ``extra``, so a cut
+        transfers only the epoch's dirty rows instead of pickling the
+        whole corpus + meta dict per cut."""
+        return self.shard.snapshot_state(extra=self.meta)
 
     def load_state(self, state) -> None:
-        raise NotImplementedError(_SNAPSHOT_SLICE)
+        if (
+            state.get("__index_segments__")
+            or state.get("__index_inline__")
+            or state.get("__index_reshard__")
+        ):
+            self.meta = self.shard.load_state(state)
+            return
+        # the adapter's snapshot shape from before delta segments
+        if state["keys"]:
+            self.shard.add(state["keys"], state["vectors"])
+        self.meta = dict(state["meta"])
 
     def search(self, queries):
         out = []

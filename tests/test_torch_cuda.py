@@ -257,3 +257,95 @@ def test_encoder_forward_replays_a_graph_equal_to_eager(gen):
     for batch in (texts[:1], texts, texts * 7, texts):
         assert (graphed.encode(batch) == eager.encode(batch)).all()
     assert len(graphed._graphs) >= 3
+
+
+# -- the sharded index and snapshots on the card ---------------------------------
+
+
+def _unit(gen, n, d):
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+
+@pytest.mark.parametrize("merge", ["tree", "gather"])
+@pytest.mark.parametrize("Q,k", [(1, 10), (32, 10), (64, 1024)])
+def test_sharded_matches_single_on_the_card(gen, monkeypatch, merge, Q, k):
+    """Four shards on one card against one KnnShard: ids and scores
+    bit-identical (the partial kernel scores a row the same wherever it
+    sits), an exact three-way tie across shards ordered by key_seq, and
+    the search launched the partial and the merge kernels."""
+    from pathway_tpu_torch.ops.knn import KnnShard
+    from pathway_tpu_torch.parallel import ShardedKnnIndex, make_mesh
+
+    monkeypatch.setenv("PATHWAY_INDEX_MERGE", merge)
+    n, d = 1 << 14, 64
+    mesh = make_mesh(devices=["cuda"] * 4, axes=("dp",), shape=(4,))
+    sharded, single = ShardedKnnIndex(d, mesh), KnnShard(d, "cos")
+    x = _unit(gen, n, d)
+    q = _unit(gen, Q, d)
+    keys = [f"k{i}" for i in range(n)]
+    # three keys on different shards hold query 0 itself
+    ties = []
+    for i, key in enumerate(keys):
+        owners = {sharded.owner_shard(t) for t in ties}
+        if i % 100 and sharded.owner_shard(key) not in owners:
+            ties.append(key)
+        if len(ties) == 3:
+            break
+    for t in ties:
+        x[keys.index(t)] = q[0]
+    for index in (sharded, single):
+        for i in range(0, n, 4096):
+            index.add(keys[i:i + 4096], x[i:i + 4096])
+        index.remove(keys[::100])
+    before = dict(fused_knn.LAUNCHES)
+    got, want = sharded.search(q, k), single.search(q, k)
+    assert got == want
+    assert [key for key, _ in got[0][:3]] == sorted(ties, key=single.key_seq.get)
+    assert fused_knn.LAUNCHES["fused_knn"] - before["fused_knn"] >= 5
+    assert fused_knn.LAUNCHES["topk_merge"] > before["topk_merge"]
+
+
+def test_tree_merge_runs_the_merge_kernel(gen):
+    from pathway_tpu_torch.ops.topk import merge_topk, tree_merge_topk
+
+    vals = [torch.sort(torch.randint(0, 5, (16, 32), generator=gen, device="cuda")
+                       .float(), dim=-1, descending=True)[0] for _ in range(8)]
+    idx = [torch.arange(32 * s, 32 * (s + 1), device="cuda", dtype=torch.int32)
+           .repeat(16, 1) for s in range(8)]
+    before = fused_knn.LAUNCHES["topk_merge"]
+    v, i = tree_merge_topk(vals, idx, 32)
+    assert fused_knn.LAUNCHES["topk_merge"] - before == 7
+    cv, ci = tree_merge_topk([t.cpu() for t in vals], [t.cpu() for t in idx], 32)
+    torch.cuda.synchronize()
+    assert torch.equal(v.cpu(), cv) and torch.equal(i.cpu(), ci)
+    mv, mi = merge_topk(vals[0].cpu(), idx[0].cpu(), vals[1].cpu(), idx[1].cpu(), 32)
+    assert torch.equal(mv, merge_topk(vals[0], idx[0], vals[1], idx[1], 32)[0].cpu())
+
+
+def test_snapshot_restore_on_the_card_is_bit_identical(gen, tmp_path):
+    """Cut, delta cut and restore of a card-resident index, into a
+    single shard and into four shards: bit-identical answers."""
+    from pathway_tpu_torch.ops.knn import KnnShard
+    from pathway_tpu_torch.parallel import ShardedKnnIndex, make_mesh
+    from pathway_tpu_torch.persistence import Backend, Config, PersistenceManager
+    from pathway_tpu_torch.persistence import index_snapshot as isnap
+
+    pm = PersistenceManager(Config(backend=Backend.filesystem(str(tmp_path))))
+    n, d = 1 << 14, 64
+    live = KnnShard(d, "cos")
+    live.add(range(n), _unit(gen, n, d))
+    with isnap.cut(pm, 1):
+        live.snapshot_state()
+    live.remove(range(0, n, 64))
+    live.add(range(n, n + n // 64), _unit(gen, n // 64, d))
+    with isnap.cut(pm, 2):
+        state = live.snapshot_state()
+    assert [s["rows"] for s in state["segments"]] == [n, n // 64]
+    q = _unit(gen, 256, d)
+    want = live.search(q, 10)
+    mesh = make_mesh(devices=["cuda"] * 4, axes=("dp",), shape=(4,))
+    for fresh in (KnnShard(d, "cos"), ShardedKnnIndex(d, mesh)):
+        with isnap.cut(pm, 0):
+            fresh.load_state(state)
+        assert fresh.search(q, 10) == want
