@@ -13,17 +13,28 @@ Phases (each prints one JSON line; any failure exits non-zero):
             some slots invalid, one exact three-way tie) and time kernel,
             plain version and a library yardstick; the partial kernel at
             Q = 256 is also timed under torch.profiler;
-3. main     a bge-small ``SentenceEncoder`` (seeded random weights) and a
-            cos ``KnnShard`` of 2^20 slots: ``IngestPipeline.run`` over
-            16,384 seeded documents, a fill to 1,048,576 live rows through
-            ``KnnShard.add``, then ``QueryEngine.query`` on 256 ingested
-            texts and 64 client threads through ``MicroBatcher.query``;
-            checks recall of each query's own document, agreement with the
-            plain search, and that serving launched the kernels; then a
-            per-stage breakdown of one query and one ingest batch and a
-            ``torch.profiler`` trace of them (device time by kernel, busy
-            share);
-4. dataflow (run last: its engine serves until the process ends) the
+3. main     a bge-small ``SentenceEncoder(checkpoint=dir)``: the script
+            writes a seeded checkpoint in the HF layout (config.json,
+            pytorch_model.bin under BERT's parameter names, vocab.txt,
+            tokenizer_config.json) and the encoder must load it bit for
+            bit; a cos ``KnnShard`` of 2^20 slots: ``IngestPipeline.run``
+            over 16,384 seeded documents, a fill to 1,048,576 live rows
+            through ``KnnShard.add``, then ``QueryEngine.query`` on 256
+            ingested texts and 64 client threads through
+            ``MicroBatcher.query``; checks recall of each query's own
+            document, agreement with the plain search, and that serving
+            launched the kernels; then a per-stage breakdown of one query
+            and one ingest batch and a ``torch.profiler`` trace of them
+            (device time by kernel, busy share). The device plane is armed
+            throughout: ``device_recompiles_total`` at ``encoder.forward``
+            and ``ingest.fused`` must equal the CUDA graphs captured for
+            each;
+4. supervised ``IngestPipeline.run`` of 1,024 seeded documents into a
+            fresh cos ``KnnShard`` under the fault plan ``device.h2d``
+            hits [1, 3]: exactly two retries at ``ingest.fused``, every row
+            equal to a fault-free ingest of the same batch, searches equal
+            to the plain scan; a permanent fault raises within 120 s;
+5. dataflow (run last: its engine serves until the process ends) the
             repo's live-RAG template (examples/demo-question-answering)
             on the port: 16,384 seeded documents written as files,
             ``pw.io.fs.read`` (streaming) -> ``VectorStoreServer`` with
@@ -37,7 +48,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
             the index's own vectors, that the phase launched the KNN
             kernel, and that JAX was never imported; prints the device
             plane's per-site record over the serving window;
-5. sharded  a ``ShardedKnnIndex`` of four shards on the card
+6. sharded  a ``ShardedKnnIndex`` of four shards on the card
             (``make_mesh(devices=[cuda:0] * 4)``) and a ``KnnShard``, both
             filled with the same 1,048,576 seeded unit vectors (1 %
             removed, one exact three-way tie across shards); queries at
@@ -45,14 +56,27 @@ Phases (each prints one JSON line; any failure exits non-zero):
             ``PATHWAY_INDEX_MERGE=gather`` and ``tree`` must give ids and
             scores bit-identical to the single shard; median search ms
             (CUDA events) of both, the device part alone, and the launches;
-6. snapshot the filled 2^20-row ``KnnShard`` under a filesystem persistence
+7. snapshot the filled 2^20-row ``KnnShard`` under a filesystem persistence
             backend: cut 1 (the full segment), 10,486 rows removed and
             10,486 new keys added, cut 2 (a delta segment of at most 2 % of
             cut 1's bytes); the chain restored into a fresh ``KnnShard`` and
             into a four-shard ``ShardedKnnIndex`` must answer 256 queries
             (k = 10) bit-identically; bytes and seconds of each cut and
             restore, peak device memory;
-7. persisted the dataflow template streaming under
+8. spawn    ``python -m pathway_tpu_torch spawn -n 2`` of a program the
+            phase writes, then the same program under ``spawn -n 1``: each
+            rank calls ``initialize_from_env()`` (gloo: the ranks share
+            the one card), reads 4,096 seeded documents as files
+            (``pw.io.fs.read``, binary, static), embeds them with
+            ``SentenceTransformerEmbedder(encoder=SentenceEncoder(
+            checkpoint=dir))`` on the card, joins them to a seeded topic
+            table, counts per topic, writes rows and counts with
+            ``pw.io.jsonlines.write`` and ``all_reduce``s the rows it
+            embedded; the two runs must give the same rows and counts,
+            embeddings within cosine 0.999, an all-reduced 4,096, and
+            ``encoder.forward`` on the card in every rank; seconds, docs/s
+            and peak device memory of each rank;
+9. persisted the dataflow template streaming under
             ``persistence_config=Config(Backend.filesystem(dir),
             persistence_mode="OPERATOR_PERSISTING")`` in a subprocess over
             4,096 documents until ``/v1/statistics`` counts them all and
@@ -64,8 +88,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
             over its indexes (a miss reports why: ``miss_detail``); the
             restart's time to its first answer and the first run's ingest
             time;
-8. report   the ``kernels`` JSON line (launches summed over every phase),
+10. report  the ``kernels`` JSON line (launches summed over every phase),
             then the device line.
+
+The phases run in the order build, kernels, main, supervised, sharded,
+snapshot, spawn, persisted, dataflow.
 
 It needs one CUDA card and the rest of the repository beside it; without
 either it exits non-zero and prints no result.
@@ -117,6 +144,16 @@ PS_DOCS = 4096
 PS_NEW = 512
 PS_RETRIEVES = 64
 PS_TIMEOUT_S = 420
+# the main phase's checkpoint: weights from another seed than the ones an
+# encoder falls back to (seed 0), so a silent fall-back fails the bit check
+CKPT_SEED = 1000
+# the supervised phase
+SV_DOCS = 1024
+SV_TIMEOUT_S = 120
+# the spawn phase
+SP_DOCS = 4096
+SP_TOPICS = 16
+SP_TIMEOUT_S = 300
 
 
 def emit(obj) -> None:
@@ -344,6 +381,88 @@ def phase_kernels(fk, topk, peaks, seed: int):
     return rows_out
 
 
+def vocab_words() -> list[str]:
+    from pathway_tpu_torch.models.tokenizer import VOCAB_ASSET
+
+    with open(VOCAB_ASSET, encoding="utf-8") as f:
+        return [w.strip() for w in f if w.strip().isalpha()]
+
+
+def hf_bert_names(layers: int) -> dict[str, str]:
+    """The port's module names -> HF ``BertModel``'s, written out here
+    rather than taken from the loader, so the checkpoint checks it."""
+    names = {
+        "tok_embed": "embeddings.word_embeddings",
+        "pos_embed": "embeddings.position_embeddings",
+        "type_embed": "embeddings.token_type_embeddings",
+        "ln_embed": "embeddings.LayerNorm",
+    }
+    for i in range(layers):
+        hf, pt = f"encoder.layer.{i}.", f"blocks.{i}."
+        for proj in ("query", "key", "value"):
+            names[pt + f"attention.{proj}"] = hf + f"attention.self.{proj}"
+        names[pt + "attention.out"] = hf + "attention.output.dense"
+        names[pt + "ln_attn"] = hf + "attention.output.LayerNorm"
+        names[pt + "mlp_in"] = hf + "intermediate.dense"
+        names[pt + "mlp_out"] = hf + "output.dense"
+        names[pt + "ln_mlp"] = hf + "output.LayerNorm"
+    return names
+
+
+def write_checkpoint(path: str, cfg, seed: int) -> dict:
+    """A seeded checkpoint of ``cfg``'s geometry in the HF layout, written
+    without ``transformers``: config.json, pytorch_model.bin (BERT's
+    parameter names, plus the pooler the encoder drops), vocab.txt (the
+    port's WordPiece asset) and tokenizer_config.json. Returns the
+    weights under the port's names."""
+    import shutil
+
+    import torch
+
+    from pathway_tpu_torch.models import init_params
+    from pathway_tpu_torch.models.tokenizer import VOCAB_ASSET
+
+    os.makedirs(path, exist_ok=True)
+    params = init_params(cfg, seed)
+    names = hf_bert_names(cfg.layers)
+    hf = {}
+    for name, t in params.items():
+        module, leaf = name.rsplit(".", 1)
+        hf[f"{names[module]}.{leaf}"] = t
+    gen = torch.Generator().manual_seed(seed)
+    hf["pooler.dense.weight"] = 0.02 * torch.randn(cfg.hidden, cfg.hidden, generator=gen)
+    hf["pooler.dense.bias"] = torch.zeros(cfg.hidden)
+    torch.save(hf, os.path.join(path, "pytorch_model.bin"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({
+            "architectures": ["BertModel"], "model_type": "bert",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden,
+            "num_hidden_layers": cfg.layers, "num_attention_heads": cfg.heads,
+            "intermediate_size": cfg.mlp, "max_position_embeddings": cfg.max_len,
+            "type_vocab_size": 2, "hidden_act": "gelu", "layer_norm_eps": 1e-12,
+            "pad_token_id": 0,
+        }, f, indent=2)
+    shutil.copy(VOCAB_ASSET, os.path.join(path, "vocab.txt"))
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "BertTokenizer", "do_lower_case": True,
+                   "model_max_length": cfg.max_len}, f, indent=2)
+    return params
+
+
+def agree_with_plain(res, pv, pi, slot_to_key, k) -> int:
+    """Queries whose served top-k has the plain search's key at every rank
+    whose score stands 1e-5 clear of its neighbours (the kernels phase's
+    rule); ``pv``/``pi`` are the plain top-(k + 1) on the host."""
+    agree = 0
+    for r, v, i in zip(res, pv, pi):
+        want = [slot_to_key[int(s)] for s in i[:k]]
+        got = [key for key, _ in r]
+        gap = v[:-1] - v[1:]
+        clear = np.minimum(np.r_[np.inf, gap[:k - 1]], gap) > 1e-5
+        agree += len(got) == k and all(g == w for g, w, c in zip(got, want, clear) if c)
+    return agree
+
+
 def make_docs(words, rng, n):
     lens = rng.integers(8, 97, size=n)
     picks = rng.integers(0, len(words), size=int(lens.sum()))
@@ -354,23 +473,30 @@ def make_docs(words, rng, n):
     return docs
 
 
-def phase_main(pt, fk, seed: int):
+def phase_main(pt, fk, ckpt: str, written: dict, seed: int):
     import dataclasses
 
     import torch
 
-    from pathway_tpu_torch.models.tokenizer import VOCAB_ASSET
+    from pathway_tpu_torch.internals import device as devplane
+    from pathway_tpu_torch.internals.monitoring import ProberStats
 
-    with open(VOCAB_ASSET, encoding="utf-8") as f:
-        words = [w.strip() for w in f if w.strip().isalpha()]
     rng = np.random.default_rng(seed)
-    docs = make_docs(words, rng, N_DOCS)
+    docs = make_docs(vocab_words(), rng, N_DOCS)
     keys = [f"doc{i}" for i in range(N_DOCS)]
 
+    # the device plane counts every new shape bucket from here on
+    stats = ProberStats()
+    devplane.PLANE.arm(None, stats)
     cfg = pt.EncoderConfig.bge_small()
     t0 = time.perf_counter()
-    params = pt.init_params(cfg, seed)
-    enc = pt.SentenceEncoder(cfg, params=params, batch_size=DOC_BATCH)
+    enc = pt.SentenceEncoder(checkpoint=ckpt, batch_size=DOC_BATCH)
+    load_s = time.perf_counter() - t0
+    loaded = enc.model.state_dict()
+    differ = [n for n, t in written.items() if not torch.equal(loaded[n].cpu(), t)]
+    if loaded.keys() != written.keys() or differ or enc.config != cfg:
+        fail(f"the checkpoint did not load bit for bit: {differ[:3]}, "
+             f"config {enc.config}")
     shard = pt.KnnShard(cfg.hidden, "cos", capacity=CAP)
     pipe = pt.IngestPipeline(enc, shard)
     engine = pt.QueryEngine(enc, shard, k=K)
@@ -378,12 +504,13 @@ def phase_main(pt, fk, seed: int):
 
     # the bf16 encoder against an f32 copy on the same weights
     ref = pt.SentenceEncoder(
-        dataclasses.replace(cfg, dtype=torch.float32), params=params,
+        dataclasses.replace(cfg, dtype=torch.float32), params=loaded,
         batch_size=DOC_BATCH,
     )
     a = torch.from_numpy(enc.encode(docs[:64]))
     b = torch.from_numpy(ref.encode(docs[:64]))
     enc_cos = float((a * b).sum(-1).min())
+    ref_graphs = list(ref._graphs)
     del ref
     if not torch.isfinite(a).all() or a.shape != (64, cfg.hidden) or enc_cos < 0.999:
         fail(f"encoder: bf16 vs f32 min cosine {enc_cos}")
@@ -432,17 +559,8 @@ def phase_main(pt, fk, seed: int):
     # the served answers against the plain search on the same embeddings
     emb = enc.encode_device(texts).contiguous()
     pv, pi = pt.chunked_topk_scores(emb, shard.vectors, shard.valid, K + 1)
-    pv, pi = pv.cpu().numpy(), pi.cpu().numpy()
-    agree = 0
-    for r, v, i in zip(res, pv, pi):
-        # the same key at every rank whose score stands 1e-5 clear of its
-        # neighbours (the kernels phase's rule)
-        want = [shard.slot_to_key[int(s)] for s in i[:K]]
-        got = [key for key, _ in r]
-        gap = v[:-1] - v[1:]
-        clear = np.minimum(np.r_[np.inf, gap[:K - 1]], gap) > 1e-5
-        agree += len(got) == K and all(
-            g == w for g, w, c in zip(got, want, clear) if c)
+    agree = agree_with_plain(res, pv.cpu().numpy(), pi.cpu().numpy(),
+                             shard.slot_to_key, K)
     if agree != 256:
         fail(f"served top-{K} disagrees with the plain search on {256 - agree} queries")
 
@@ -483,6 +601,8 @@ def phase_main(pt, fk, seed: int):
 
     emit({
         "phase": "main", "config": "bge_small", "docs": N_DOCS,
+        "checkpoint": {"tensors": len(written), "bit_identical": True,
+                       "load_s": load_s, "tokenizer": type(enc.tokenizer).__name__},
         "live_rows": len(shard), "capacity": shard.capacity,
         "setup_s": setup_s, "encoder_bf16_vs_f32_min_cos": enc_cos,
         "ingest_s": ingest_s, "ingest_docs_per_s": N_DOCS / ingest_s,
@@ -507,7 +627,23 @@ def phase_main(pt, fk, seed: int):
         fail(f"serving did not launch every kernel: {launches}")
     emit(breakdown(pipe, engine, docs, keys, texts))
     emit(trace(pipe, engine, docs, keys, texts))
-    return launches
+
+    # a new bucket at encoder.forward / ingest.fused is exactly one CUDA
+    # graph captured for it (the f32 copy's graphs included)
+    devplane.PLANE.disarm()
+    graphs: dict = {}
+    for site, _ in list(enc._graphs) + ref_graphs:
+        graphs[site] = graphs.get(site, 0) + 1
+    recompiles = dict(stats.device_recompiles)
+    text = stats.render_openmetrics()
+    emit({"phase": "recompiles", "device_recompiles": recompiles,
+          "cuda_graphs": graphs})
+    for site in ("encoder.forward", "ingest.fused"):
+        line = f'device_site_recompiles_total{{site="{site}"}} {graphs.get(site, 0)}'
+        if not graphs.get(site) or recompiles.get(site) != graphs[site] or line not in text:
+            fail(f"{site}: {recompiles.get(site)} recompiles noted, "
+                 f"{graphs.get(site)} CUDA graphs captured")
+    return launches, enc
 
 
 def breakdown(pipe, engine, docs, keys, texts):
@@ -515,6 +651,7 @@ def breakdown(pipe, engine, docs, keys, texts):
     stage run alone and closed with a synchronize (host clock, ms)."""
     import torch
 
+    from pathway_tpu_torch.internals.device import encoder_bucket
     from pathway_tpu_torch.models.encoder import (
         compact_tokens, expand_compact, pad_batch,
     )
@@ -534,7 +671,8 @@ def breakdown(pipe, engine, docs, keys, texts):
         ids_t, mask_t = expand_compact(*(torch.from_numpy(a).cuda() for a in wire))
         sync()
         t2 = time.perf_counter()
-        emb = enc.forward(ids_t, mask_t)[:n].contiguous()
+        emb = enc.forward(ids_t, mask_t, bucket=encoder_bucket(
+            *ids_t.shape, True))[:n].contiguous()
         sync()
         t3 = time.perf_counter()
         with shard.lock:
@@ -548,6 +686,25 @@ def breakdown(pipe, engine, docs, keys, texts):
             stages[name].append(1e3 * (b - a))
     out["query_batch_ms"] = {k: float(np.median(v)) for k, v in stages.items()}
     out["query_batch_tokens"] = list(ids_p.shape)
+
+    # the checkpoint's tokenizer against the port's memoized WordPiece over
+    # the same vocab: the same ids, and each one's time in this call
+    from pathway_tpu_torch.models.tokenizer import VOCAB_ASSET
+    from pathway_tpu_torch.models.wordpiece import WordPieceTokenizer
+
+    wordpiece = WordPieceTokenizer(VOCAB_ASSET, max_length=enc.config.max_len)
+    wp_ids, wp_mask = wordpiece(texts)
+    if not (np.array_equal(wp_ids, ids) and np.array_equal(wp_mask, mask)):
+        fail(f"{type(enc.tokenizer).__name__} and the WordPiece fallback give "
+             "different ids on the query batch")
+    tok_ms = {"checkpoint": [], "wordpiece": []}
+    for _ in range(3):
+        for name, tok in (("checkpoint", enc.tokenizer), ("wordpiece", wordpiece)):
+            t0 = time.perf_counter()
+            tok(texts)
+            tok_ms[name].append(1e3 * (time.perf_counter() - t0))
+    out["tokenizer"] = type(enc.tokenizer).__name__
+    out["tokenize_ms"] = {k: float(np.median(v)) for k, v in tok_ms.items()}
 
     # ingest: upserts of documents already indexed (no growth), 8 batches
     tok, chain = [], []
@@ -603,6 +760,297 @@ def trace(pipe, engine, docs, keys, texts):
     }
 
 
+def phase_supervised(pt, fk, enc, seed: int):
+    """``IngestPipeline.run`` under injected H2D staging faults, against a
+    fault-free run of the same batches."""
+    import torch
+
+    from pathway_tpu_torch.internals import device as devplane
+    from pathway_tpu_torch.internals import faults
+    from pathway_tpu_torch.internals.monitoring import ProberStats
+
+    docs = make_docs(vocab_words(), np.random.default_rng(seed + 17), SV_DOCS)
+    keys = [f"sv{i}" for i in range(SV_DOCS)]
+    batches = [(keys[i:i + DOC_BATCH], docs[i:i + DOC_BATCH])
+               for i in range(0, SV_DOCS, DOC_BATCH)]
+    dim = enc.embed_dim
+    clean = pt.KnnShard(dim, "cos", capacity=SV_DOCS, device=enc.device)
+    pt.IngestPipeline(enc, clean, device=enc.device).run(iter(batches))
+    shard = pt.KnnShard(dim, "cos", capacity=SV_DOCS, device=enc.device)
+    pipe = pt.IngestPipeline(enc, shard, device=enc.device)
+
+    zero_launches(fk)  # counts of this phase only
+    stats = ProberStats()
+    faults.install_plan({"rules": [
+        {"point": "device.h2d", "hits": [1, 3], "action": "raise"}]})
+    devplane.PLANE.arm(None, stats)
+    t0 = time.perf_counter()
+    try:
+        rows = pipe.run(iter(batches))
+    finally:
+        devplane.PLANE.disarm()
+        faults.clear_plan()
+    run_s = time.perf_counter() - t0
+    retries = stats.device_dispatch_retries.get("ingest.fused", 0)
+    got = shard.vectors[[shard.key_to_slot[k] for k in keys]]
+    want = clean.vectors[[clean.key_to_slot[k] for k in keys]]
+    max_err = float((got - want).abs().max())
+    equal = bool(torch.equal(got, want))
+
+    # searches over the faulted index, through the kernels, against the
+    # plain scan
+    q = want[:64].contiguous()
+    res = shard.search(q, K)
+    pv, pi = pt.chunked_topk_scores(q, shard.vectors, shard.valid, K + 1)
+    agree = agree_with_plain(res, pv.cpu().numpy(), pi.cpu().numpy(),
+                             shard.slot_to_key, K)
+    own = float(np.mean([r[0][0] == k for r, k in zip(res, keys)]))
+    launches = dict(fk.LAUNCHES)
+
+    # a permanent fault surfaces, and does not hang the pipeline
+    faults.install_plan({"rules": [
+        {"point": "device.h2d", "action": "raise", "retryable": False}]})
+    box: list = []
+
+    def permanent():
+        try:
+            pipe.run(iter([(["sv-new"], [docs[0]])]))
+            box.append(None)
+        except faults.InjectedFault as e:
+            box.append(e)
+
+    th = threading.Thread(target=permanent, daemon=True)
+    th.start()
+    th.join(SV_TIMEOUT_S)
+    faults.clear_plan()
+    row = {
+        "phase": "supervised", "docs": SV_DOCS, "rows": rows, "live_rows": len(shard),
+        "retries": retries, "run_s": run_s, "equal_to_fault_free": equal,
+        "max_abs_err": max_err, "searches_equal_plain": agree, "own_doc_top1": own,
+        "permanent_raised": bool(box and box[0] is not None), "launches": launches,
+    }
+    emit(row)
+    if rows != SV_DOCS or len(shard) != SV_DOCS:
+        fail(f"supervised ingest wrote {rows} rows, the index holds {len(shard)}")
+    if retries != 2:
+        fail(f"supervised ingest retried {retries} times at ingest.fused, not 2")
+    if not equal:
+        fail(f"supervised rows differ from a fault-free ingest: max err {max_err}")
+    if agree != len(q) or own < RECALL_MIN:
+        fail(f"supervised searches: {agree} of {len(q)} equal the plain scan, "
+             f"own document first in {own}")
+    if th.is_alive() or not row["permanent_raised"] or len(shard) != SV_DOCS:
+        fail("a permanent staging fault did not surface "
+             f"(hung: {th.is_alive()}, raised: {row['permanent_raised']})")
+    if not launches.get("fused_knn"):
+        fail(f"the supervised searches launched no KNN kernel: {launches}")
+    return launches
+
+
+# The spawn phase's program, run by every rank: CKPT FOLDER TOPICS OUT DEVICE
+SPAWN_PROGRAM = r"""
+import json, os, sys, time
+t_start = time.perf_counter()
+import torch
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.internals.config import get_pathway_config
+from pathway_tpu_torch.models.encoder import SentenceEncoder
+from pathway_tpu_torch.parallel import initialize_from_env
+from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+stages = {"imports": time.perf_counter() - t_start}
+ckpt, folder, topics_file, out, device = sys.argv[1:6]
+device = None if device == "cuda" else device
+cfg = get_pathway_config()
+t0 = time.perf_counter()
+grouped = initialize_from_env(device=device)
+backend = torch.distributed.get_backend() if grouped else None
+stages["process_group"] = time.perf_counter() - t0
+t0 = time.perf_counter()
+enc = SentenceEncoder(checkpoint=ckpt, device=device)
+stages["checkpoint"] = time.perf_counter() - t0
+embedded = [0]
+encode = enc.encode
+
+def counting_encode(texts):
+    embedded[0] += len(texts)
+    return encode(texts)
+
+enc.encode = counting_encode
+
+class Topic(pw.Schema):
+    name: str
+    topic: int
+
+files = pw.io.fs.read(folder, format="binary", mode="static", with_metadata=True)
+docs = files.select(
+    name=pw.apply_with_type(
+        lambda m: os.path.basename(str(m.value["path"])), str, pw.this._metadata),
+    text=pw.apply_with_type(lambda b: b.decode("utf-8"), str, pw.this.data),
+)
+topics = pw.io.jsonlines.read(topics_file, schema=Topic, mode="static")
+# static rows enter the engine at rank 0; the join's exchange spreads them
+# by name, so every rank embeds the documents it owns
+joined = docs.join(topics, pw.left.name == pw.right.name).select(
+    name=pw.left.name, text=pw.left.text, topic=pw.right.topic)
+embedder = SentenceTransformerEmbedder(encoder=enc)
+rows = joined.select(
+    pw.this.name, pw.this.topic,
+    vec=pw.apply(lambda v: [round(float(x), 6) for x in v], embedder(pw.this.text)),
+)
+counts = rows.groupby(pw.this.topic).reduce(topic=pw.this.topic, n=pw.reducers.count())
+pw.io.jsonlines.write(rows, os.path.join(out, "rows.jsonl"))
+pw.io.jsonlines.write(counts, os.path.join(out, "counts.jsonl"))
+t_run = time.perf_counter()
+pw.run(monitoring_level=pw.MonitoringLevel.NONE)
+stages["run"] = time.perf_counter() - t_run
+total = embedded[0]
+if grouped:
+    t = torch.tensor([embedded[0]], dtype=torch.int64,
+                     device=enc.device if backend == "nccl" else "cpu")
+    torch.distributed.all_reduce(t)
+    total = int(t.item())
+cuda = enc.device.type == "cuda"
+with open(os.path.join(out, f"rank{cfg.process_id}.json"), "w") as f:
+    json.dump({
+        "rank": cfg.process_id, "processes": cfg.processes, "grouped": grouped,
+        "backend": backend, "device": str(enc.device), "embedded": embedded[0],
+        "all_reduced": total, "graphs": len([g for g in enc._graphs.values() if g]),
+        "buckets": len(enc._graphs), "stages_s": stages,
+        "process_s": time.perf_counter() - t_start,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+    }, f)
+if grouped:
+    torch.distributed.destroy_process_group()
+"""
+
+
+def run_spawn(root: str, processes: int, args: list, timeout: int) -> dict:
+    """``python -m pathway_tpu_torch spawn -n processes`` of the spawn
+    program; its whole process group is killed if it outlives ``timeout``."""
+    import signal
+
+    out = os.path.join(root, f"out{processes}")
+    os.makedirs(out)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    env.pop("PATHWAY_COORDINATOR", None)
+    cmd = [sys.executable, "-m", "pathway_tpu_torch", "spawn", "-n", str(processes),
+           "--first-port", str(free_port_base(processes + 1)),
+           os.path.join(root, "prog.py"), *args[:3], out, args[3]]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"spawn -n {processes} did not end within {timeout} s")
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"spawn -n {processes} exited {proc.returncode}: {stderr[-3000:]}")
+    ranks = []
+    for r in range(processes):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    rows = {}
+    with open(os.path.join(out, "rows.jsonl")) as f:
+        for line in f:
+            d = json.loads(line)
+            if d["diff"] > 0:
+                rows[d["name"]] = (d["topic"], np.asarray(d["vec"], np.float32))
+    counts = {}
+    with open(os.path.join(out, "counts.jsonl")) as f:
+        for line in f:
+            d = json.loads(line)
+            counts[d["topic"]] = counts.get(d["topic"], 0) + d["diff"] * d["n"]
+    return {"seconds": seconds, "ranks": ranks, "rows": rows,
+            "counts": {t: n for t, n in counts.items() if n}}
+
+
+def phase_spawn(ckpt: str, seed: int, device: str = "cuda", docs: int = SP_DOCS):
+    """Two ranks of ``python -m pathway_tpu_torch spawn`` on the one card
+    against the same program under ``spawn -n 1``."""
+    import shutil
+
+    rng = np.random.default_rng(seed + 19)
+    texts = make_docs(vocab_words(), rng, docs)
+    root = tempfile.mkdtemp(prefix="chip_smoke_spawn_")
+    folder = os.path.join(root, "docs")
+    os.makedirs(folder)
+    names = [f"doc{i:06d}.txt" for i in range(docs)]
+    for name, text in zip(names, texts):
+        with open(os.path.join(folder, name), "w", encoding="utf-8") as f:
+            f.write(text)
+    topic_of = dict(zip(names, (int(t) for t in rng.integers(0, SP_TOPICS, docs))))
+    topics = os.path.join(root, "topics.jsonl")
+    with open(topics, "w") as f:
+        for name, t in topic_of.items():
+            f.write(json.dumps({"name": name, "topic": t}) + "\n")
+    with open(os.path.join(root, "prog.py"), "w") as f:
+        f.write(SPAWN_PROGRAM)
+    args = [ckpt, folder, topics, device]
+    two = run_spawn(root, 2, args, SP_TIMEOUT_S)
+    one = run_spawn(root, 1, args, SP_TIMEOUT_S)
+    shutil.rmtree(root, ignore_errors=True)
+
+    want_counts = {}
+    for t in topic_of.values():
+        want_counts[t] = want_counts.get(t, 0) + 1
+    same_rows = (two["rows"].keys() == one["rows"].keys() == set(names) and all(
+        two["rows"][n][0] == one["rows"][n][0] == topic_of[n] for n in names))
+    cos = [float(np.dot(two["rows"][n][1], one["rows"][n][1])
+                 / (np.linalg.norm(two["rows"][n][1]) * np.linalg.norm(one["rows"][n][1])))
+           for n in names if n in two["rows"] and n in one["rows"]]
+    row = {
+        "phase": "spawn", "docs": docs, "topics": SP_TOPICS,
+        "seconds": {"ranks2": two["seconds"], "ranks1": one["seconds"]},
+        "docs_per_s": {"ranks2": docs / two["seconds"], "ranks1": docs / one["seconds"]},
+        "ranks2": two["ranks"], "ranks1": one["ranks"],
+        "rows_equal": same_rows,
+        "counts_equal": two["counts"] == one["counts"] == want_counts,
+        "min_cos": min(cos) if cos else None,
+    }
+    emit(row)
+    if not same_rows or not row["counts_equal"]:
+        fail(f"spawn -n 2 rows/counts differ from spawn -n 1: rows {same_rows}, "
+             f"counts {two['counts']} vs {one['counts']}")
+    if len(cos) != docs or min(cos) < 0.999:
+        fail(f"spawn -n 2 embeddings: {len(cos)} compared, min cosine {row['min_cos']}")
+    for r in two["ranks"]:
+        if not r["grouped"] or r["backend"] != "gloo" or r["all_reduced"] != docs:
+            fail(f"rank {r['rank']}: group {r['grouped']}, backend {r['backend']}, "
+                 f"all-reduced rows {r['all_reduced']}")
+    for r in two["ranks"] + one["ranks"]:
+        if not r["embedded"] or (device == "cuda" and (
+                not r["device"].startswith("cuda") or not r["graphs"])):
+            fail(f"rank {r['rank']} of {r['processes']} did not run encoder.forward "
+                 f"on the card: {r}")
+    if one["ranks"][0]["embedded"] != docs:
+        fail(f"spawn -n 1 embedded {one['ranks'][0]['embedded']} of {docs} documents")
+    return row
+
+
+def free_port_base(n: int) -> int:
+    """A base port with ``n`` consecutive free ports after it."""
+    for _ in range(50):
+        base = free_port()
+        socks = []
+        try:
+            for i in range(n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", base + i))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    fail("no range of free ports")
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -617,7 +1065,6 @@ def phase_dataflow(fk, seed: int):
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.internals import device as devplane
     from pathway_tpu_torch.internals.monitoring import ProberStats
-    from pathway_tpu_torch.models.tokenizer import VOCAB_ASSET
     from pathway_tpu_torch.ops.topk import chunked_topk_scores
     from pathway_tpu_torch.stdlib.indexing import nearest_neighbors as nn_mod
     from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
@@ -627,10 +1074,8 @@ def phase_dataflow(fk, seed: int):
     )
     from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreServer
 
-    with open(VOCAB_ASSET, encoding="utf-8") as f:
-        words = [w.strip() for w in f if w.strip().isalpha()]
     rng = np.random.default_rng(seed + 7)
-    docs = make_docs(words, rng, DF_DOCS)
+    docs = make_docs(vocab_words(), rng, DF_DOCS)
     folder = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_docs_"), "docs")
     os.makedirs(folder)
     names = [f"doc{i:06d}.txt" for i in range(DF_DOCS)]
@@ -1186,12 +1631,8 @@ def phase_persisted(seed: int):
     """The dataflow template persisted, stopped and restarted on more files."""
     import shutil
 
-    from pathway_tpu_torch.models.tokenizer import VOCAB_ASSET
-
-    with open(VOCAB_ASSET, encoding="utf-8") as f:
-        words = [w.strip() for w in f if w.strip().isalpha()]
     rng = np.random.default_rng(seed + 13)
-    texts = make_docs(words, rng, PS_DOCS + PS_NEW)
+    texts = make_docs(vocab_words(), rng, PS_DOCS + PS_NEW)
     names = [f"doc{i:06d}.txt" for i in range(PS_DOCS + PS_NEW)]
     root = tempfile.mkdtemp(prefix="chip_smoke_persisted_")
     folder, pdir = os.path.join(root, "docs"), os.path.join(root, "store")
@@ -1304,12 +1745,18 @@ def main() -> int:
         fail(f"no data-sheet peaks for {kind!r} in internals/device.py")
     peaks = (rates["bandwidth"], rates["fp32"], rates["tf32"])
     kern = phase_kernels(fk, topk, peaks, args.seed)
-    per_phase = [phase_main(pt, fk, args.seed)]
+    ckpt = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"), "bge-small")
+    written = write_checkpoint(ckpt, pt.EncoderConfig.bge_small(), args.seed + CKPT_SEED)
+    main_launches, enc = phase_main(pt, fk, ckpt, written, args.seed)
+    per_phase = [main_launches, phase_supervised(pt, fk, enc, args.seed)]
+    del enc
+    torch.cuda.empty_cache()
     sharded_launches, single = phase_sharded(pt, fk, args.seed)
     per_phase.append(sharded_launches)
     per_phase.append(phase_snapshot(pt, fk, single, args.seed))
     del single
     torch.cuda.empty_cache()
+    phase_spawn(ckpt, args.seed)  # the ranks search no index: no KNN launch
     per_phase.append(phase_persisted(args.seed))
     # last: its pw.run serves (and rescans its folder) until the process ends
     per_phase.append(phase_dataflow(fk, args.seed))

@@ -174,6 +174,7 @@ _LAZY_ATTRS = {
 }
 
 _LAZY_MODULES = {
+    "demo": "pathway_tpu_torch.demo",
     "indexing": "pathway_tpu_torch.stdlib.indexing",
     "temporal": "pathway_tpu_torch.stdlib.temporal",
     "ml": "pathway_tpu_torch.stdlib.ml",

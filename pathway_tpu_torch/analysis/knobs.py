@@ -86,6 +86,11 @@ KNOBS: dict[str, Knob] = {
         _k("PATHWAY_HOSTS", "str", None,
            "Comma-separated host[:port] list for multi-host meshes "
            "(default: loopback)."),
+        _k("PATHWAY_COORDINATOR", "str", None,
+           "host:port of the torch.distributed process group's store "
+           "(default: loopback, PATHWAY_FIRST_PORT + PATHWAY_PROCESSES)."),
+        _k("PATHWAY_SPAWN_ARGS", "str", None,
+           "Arguments for `python -m pathway_tpu_torch spawn-from-env`."),
         # -- run configuration --------------------------------------------
         _k("PATHWAY_RUN_ID", "str", None, "Run identifier (telemetry)."),
         _k("PATHWAY_LICENSE_KEY", "str", None,

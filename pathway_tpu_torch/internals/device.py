@@ -301,6 +301,20 @@ def knn_search_bucket(
     return (query_pad(n), capacity, k_eff)
 
 
+def knn_write_bucket(nrows: int, capacity: int) -> tuple:
+    """Shape key of one ``knn.write`` slot write. The row count is
+    data-driven (writes are not padded)."""
+    return (nrows, capacity)
+
+
+def fused_knn_bucket(q: int, cap: int, d: int, k: int) -> tuple:
+    """Shape key of one launch of the fused KNN pair (``knn.fused``, the
+    JAX package's ``pallas.topk``): every input dim and k. The pair is
+    built once by nvcc; a new key is a new launch plan (query tile,
+    splits), counted as the JAX package counts a new executable."""
+    return (q, cap, d, k)
+
+
 def sharded_search_bucket(
     n: int, n_shards: int, local_cap: int, k: int, chunk: int | None
 ) -> tuple:
@@ -551,6 +565,26 @@ class DevicePlane:
                 t_done, flops, bytes_accessed, transfer_bytes, d.depth,
                 flops_effective,
             )
+
+    def note_recompile(self, site: str) -> None:
+        """A dispatch site met a new shape bucket: on the card a new CUDA
+        graph (``encoder.forward``, ``ingest.fused``) or launch plan, in
+        the JAX package a fresh XLA executable. Feeds
+        ``device_recompiles_total``, so a shape-bucket leak that captures
+        on every batch shows on the metrics instead of only as wall
+        time."""
+        stats = self.stats
+        if stats is not None:
+            stats.on_device_recompile(site)
+
+    def note_bucket(self, seen: set, site: str, bucket: tuple) -> None:
+        """``note_recompile(site)`` the first time ``bucket`` enters the
+        site's ``seen`` set."""
+        with self._lock:
+            if bucket in seen:
+                return
+            seen.add(bucket)
+        self.note_recompile(site)
 
     # -- HBM gauges --------------------------------------------------------
     def _sample_memory_throttled(self) -> None:

@@ -36,6 +36,7 @@ from pathway_tpu_torch.internals.device import (
     PLANE as _DEVICE,
     batch_bucket,
     device_site,
+    encoder_bucket,
     nbytes_of,
     resolve_device,
     seq_bucket,
@@ -270,13 +271,17 @@ class SentenceEncoder:
 
     ``params`` is a state dict in this package's layout (see
     ``models/convert.py``); without one the weights come from
-    ``init_params(config, seed)``. ``device=None`` runs on the card.
+    ``checkpoint`` (a local HF checkpoint directory, or a hub name in a
+    populated HF cache; ``models/hf_loader.py``), which brings its own
+    config and tokenizer, or else from ``init_params(config, seed)``.
+    ``device=None`` runs on the card.
     """
 
     def __init__(
         self,
         config: EncoderConfig | None = None,
         *,
+        checkpoint: str | None = None,
         tokenizer_path: str | None = None,
         seed: int = 0,
         batch_size: int = 256,
@@ -284,8 +289,19 @@ class SentenceEncoder:
         device: Any = None,
     ):
         self.device = resolve_device(device)
+        tokenizer = None
+        if checkpoint is not None and params is None:
+            try:
+                from pathway_tpu_torch.models.hf_loader import load_bert_encoder
+
+                config, params, tokenizer = load_bert_encoder(checkpoint)
+            except OSError:
+                # not available offline: seeded weights and the WordPiece
+                # vocab, as in the JAX package. Any other exception is a
+                # loader or geometry fault and surfaces.
+                pass
         self.config = config or EncoderConfig.bge_small()
-        self.tokenizer = get_tokenizer(
+        self.tokenizer = tokenizer or get_tokenizer(
             tokenizer_path,
             vocab_size=self.config.vocab_size,
             max_length=self.config.max_len,
@@ -298,7 +314,8 @@ class SentenceEncoder:
         model = TransformerEncoder(self.config)
         model.load_state_dict(params)
         self.model = model.to(self.device).eval()
-        # CUDA graphs of the forward, one per padded (batch, seq) bucket
+        # the forward's shape buckets, (site, bucket) -> its CUDA graph on
+        # the card (None on the CPU)
         self._graphs: dict = {}
         self._graph_lock = threading.Lock()
         self._graph_pool = None
@@ -307,20 +324,35 @@ class SentenceEncoder:
     def embed_dim(self) -> int:
         return self.config.hidden
 
-    def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """Embeddings of a padded batch. On the card the forward replays a
-        CUDA graph captured for the batch's shape: eager, its ~300 small
-        launches each release and retake the GIL, and beside a busy Python
-        thread (a connector's rescan, the engine's own operators) every
-        retake can wait out the interpreter's switch interval."""
+    def forward(
+        self, ids: torch.Tensor, mask: torch.Tensor, *,
+        site: str = "encoder.forward", bucket: tuple | None = None,
+    ) -> torch.Tensor:
+        """Embeddings of a padded batch (ids int64, mask int32).
+
+        ``site`` and ``bucket`` name the calling device site and its shape
+        bucket (by default the batch's shape); a bucket must fix the
+        shape. The first forward of a (site, bucket) notes a recompile at
+        ``site``, on every device. On the card it captures that bucket's
+        CUDA graph, which every later forward of the bucket replays:
+        eager, the forward's ~300 small launches each release and retake
+        the GIL, and beside a busy Python thread (a connector's rescan,
+        the engine's own operators) every retake can wait out the
+        interpreter's switch interval."""
+        key = (site, tuple(ids.shape) if bucket is None else bucket)
         with torch.inference_mode():
             if self.device.type != "cuda":
+                with self._graph_lock:
+                    new = key not in self._graphs
+                    self._graphs[key] = None
+                if new:
+                    _DEVICE.note_recompile(site)
                 return self.model(ids, mask)
             with self._graph_lock:
-                key = (tuple(ids.shape), ids.dtype, mask.dtype)
                 entry = self._graphs.get(key)
                 if entry is None:
                     entry = self._graphs[key] = self._capture(ids, mask)
+                    _DEVICE.note_recompile(site)
                 graph, ids_in, mask_in, out = entry
                 ids_in.copy_(ids)
                 mask_in.copy_(mask)
@@ -394,7 +426,10 @@ class SentenceEncoder:
             else:
                 ids_t = torch.from_numpy(ids_p).to(self.device, torch.int64)
                 mask_t = torch.from_numpy(mask_p).to(self.device)
-            return self.forward(ids_t, mask_t)
+            return self.forward(
+                ids_t, mask_t, site="encoder.forward",
+                bucket=encoder_bucket(nb, Lb, compact is not None),
+            )
 
         try:
             emb = _devsup.supervised_dispatch("encoder.forward", launch)

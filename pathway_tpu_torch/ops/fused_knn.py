@@ -32,6 +32,7 @@ import functools
 
 import torch
 
+from pathway_tpu_torch.internals.device import PLANE as _DEVICE, fused_knn_bucket
 from pathway_tpu_torch.ops import _build
 from pathway_tpu_torch.ops.topk import chunked_topk_scores
 
@@ -45,6 +46,9 @@ _STAGES, _DKP = 2, 68
 
 # launches of each kernel, counted where the wrapper launches it
 LAUNCHES = {"fused_knn": 0, "topk_merge": 0}
+# shape buckets met by the pair's site, ``knn.fused`` (the JAX package's
+# ``pallas.topk``)
+_SEEN_BUCKETS: set = set()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -304,6 +308,8 @@ def fused_topk_scores(
         raise ValueError(f"unknown metric {metric!r}")
     if metric == "l2sq" and sq_norms is None:
         raise ValueError("metric='l2sq' needs sq_norms")
+    _DEVICE.note_bucket(_SEEN_BUCKETS, "knn.fused", fused_knn_bucket(
+        queries.shape[0], database.shape[0], queries.shape[1], k))
     if queries.device.type == "cpu":
         return chunked_topk_scores(
             queries, database, valid, k, sq_norms=sq_norms, metric=metric

@@ -10,6 +10,15 @@
   on a side stream while the previous batch's chain runs; the compute
   stream waits on the copy's event before use. At most ``depth`` staged
   batches are in flight (``PATHWAY_INGEST_DEPTH``).
+* **Supervision**: the chain is the ``ingest.fused`` device site, a timed
+  dispatch record with its cost model and a launch under
+  ``supervised_dispatch``. The ``device.h2d`` fault point fires while a
+  batch is staged, before its copy is enqueued, and the producer restarts
+  on the same batch when the classifier calls the failure transient, so a
+  retried batch is staged afresh and its slots are assigned once.
+* **Buckets**: each new (batch, seq, capacity, wire dtype) bucket notes a
+  recompile at ``ingest.fused`` and, on the card, captures the encoder's
+  CUDA graph for it.
 
 Padded rows: the JAX chain writes them to slot ``== capacity``, which its
 scatter drops (``mode="drop"``); torch has no drop mode, so only the first
@@ -21,18 +30,37 @@ from __future__ import annotations
 import os
 import queue
 import threading
+import time
 from typing import Any, Iterable, Sequence
 
 import torch
 
-from pathway_tpu_torch.internals.device import resolve_device
+from pathway_tpu_torch.internals import device as _devsup
+from pathway_tpu_torch.internals.device import (
+    PLANE as _DEVICE,
+    device_site,
+    ingest_bucket,
+    nbytes_of,
+    resolve_device,
+)
+from pathway_tpu_torch.internals.faults import fault_point
 from pathway_tpu_torch.models.encoder import (
     SentenceEncoder,
     compact_tokens,
     expand_compact,
+    forward_cost_model,
     pad_batch,
 )
 from pathway_tpu_torch.ops.knn import KnnShard, Metric
+
+device_site(
+    "ingest.fused",
+    cost_model=forward_cost_model,
+    dtypes=("int16", "int32", "float32", "bool"),
+    where="pathway_tpu_torch/ops/ingest.py:IngestPipeline._dispatch",
+    description="fused tokenize->encode->slot-write chain "
+                "(in place in the index's device buffers)",
+)
 
 
 def _env_int(name: str, default: int) -> int:
@@ -54,6 +82,8 @@ class IngestPipeline:
     as ``KnnShard.add`` does. ``device=None`` runs on the card; the encoder
     and the index must be on the pipeline's device.
     """
+
+    site = "ingest.fused"
 
     def __init__(
         self,
@@ -113,6 +143,10 @@ class IngestPipeline:
         else:
             wire = tuple(torch.from_numpy(a) for a in compact)
         eff_tokens = int(mask_p[:n].sum())
+        # the injectable H2D staging failure fires per staged batch,
+        # before any copy is enqueued: run()'s producer classifies it and
+        # stages the same batch again
+        fault_point("device.h2d", site=self.site)
         event = None
         if self._copy_stream is not None:
             # pinned source + async copy on the side stream: the device
@@ -144,11 +178,38 @@ class IngestPipeline:
         self.real_tokens += eff_tokens
         self.padded_tokens += nb * Lb
         index = self.index
-        with index.lock:
-            slots = index._assign_slots(keys)
-            emb = self.encoder.forward(ids, mask)[:n]
-            # the encoder's rows are already unit-norm: store as they are
-            index._write_slots(slots, emb, True)
+        dev = _DEVICE.begin(self.site, self.device) if _DEVICE.on else None
+        try:
+            with index.lock:
+                slots = index._assign_slots(keys)
+                bucket = ingest_bucket(
+                    nb, Lb, index.capacity, "int16" if compact else "int32")
+
+                def chain() -> torch.Tensor:
+                    out = self.encoder.forward(
+                        ids, mask, site=self.site, bucket=bucket)[:n]
+                    # the encoder's rows are already unit-norm: store them
+                    # as they are
+                    index._write_slots(slots, out, True)
+                    return out
+
+                # injected faults raise before the launch, so a retry
+                # writes the same slots again (an upsert)
+                emb = _devsup.supervised_dispatch(self.site, chain)
+        except BaseException:
+            _DEVICE.end(dev, None, block=False)
+            raise
+        if dev is not None:
+            # the forward dominates; the slot write adds the sq-norm
+            # reduction and the row traffic (KnnShard.add's model)
+            d = index.dimension
+            flops, acc = forward_cost_model(self.encoder.config, nb, Lb)
+            _DEVICE.end(
+                dev, emb, flops=flops + 4.0 * nb * d,
+                bytes_accessed=acc + 8.0 * nb * d + 8.0 * nb,
+                transfer_bytes=nbytes_of(*wire) + 8 * n,
+                effective_share=eff_tokens / float(nb * Lb),
+            )
         return emb
 
     # -- public API --------------------------------------------------------
@@ -173,11 +234,44 @@ class IngestPipeline:
         stop = threading.Event()
 
         def producer():
+            # the connectors' SupervisorPolicy for the tokenize-ahead
+            # stage: a transient fault (tokenizer I/O, the H2D copy)
+            # restarts the producer on the SAME batch with bounded
+            # backoff; a fault pulling from ``batches`` itself stays
+            # permanent (a raised generator is dead)
+            from pathway_tpu_torch.parallel import protocol as _proto
+            from pathway_tpu_torch.udfs.retries import is_retryable
+
+            retries = _devsup.dispatch_retries()
             try:
                 for keys, texts in batches:
-                    if stop.is_set():
-                        return
-                    staged_q.put(self._stage(keys, texts))
+                    attempt = 0
+                    while True:
+                        if stop.is_set():
+                            return
+                        try:
+                            staged = self._stage(keys, texts)
+                            break
+                        except BaseException as e:
+                            kind = (
+                                "transient"
+                                if isinstance(e, Exception) and is_retryable(e)
+                                else "permanent"
+                            )
+                            verdict = _proto.device_dispatch_decide(
+                                kind, attempt, retries
+                            )
+                            if verdict[0] != "retry":
+                                raise
+                            attempt = verdict[1]
+                            stats = _DEVICE.stats
+                            if stats is not None:
+                                stats.on_device_dispatch_retry(self.site)
+                            time.sleep(min(
+                                _devsup._RETRY_BACKOFF_CAP_S,
+                                _devsup._RETRY_BACKOFF_BASE_S * 2 ** (attempt - 1),
+                            ))
+                    staged_q.put(staged)
             except BaseException as e:  # surfaced on the consumer side
                 err.append(e)
             finally:

@@ -37,6 +37,7 @@ from pathway_tpu_torch.internals.device import (
     PLANE as _DEVICE,
     device_site,
     knn_search_bucket,
+    knn_write_bucket,
     nbytes_of,
     pow2_capacity,
     resolve_device,
@@ -143,6 +144,8 @@ class KnnShard:
         self._dirty_removed: dict[Any, None] = {}
         self._segments: list[dict] = []
         self._retired: list[list[str]] = []
+        # shape buckets met by the write and search sites
+        self._seen_buckets: set = set()
 
     # device sites reachable through this index as an external-index
     # adapter
@@ -245,6 +248,8 @@ class KnnShard:
             raise ValueError("keys/vectors length mismatch")
         with self.lock:
             slots = self._assign_slots(keys)
+            _DEVICE.note_bucket(self._seen_buckets, "knn.write",
+                                knn_write_bucket(len(slots), self.capacity))
             dev = _DEVICE.begin("knn.write", self.device) if _DEVICE.on else None
             try:
                 # supervised: injected faults raise before the launch, so
@@ -380,7 +385,9 @@ class KnnShard:
         dev = _DEVICE.begin("knn.search", self.device) if _DEVICE.on else None
         try:
             with self.lock:  # read + launch before the next in-place write
-                _, _, k_eff = knn_search_bucket(n, self.capacity, k, None)
+                bucket = knn_search_bucket(n, self.capacity, k, None)
+                _DEVICE.note_bucket(self._seen_buckets, "knn.search", bucket)
+                k_eff = bucket[2]
                 vals, idx = _devsup.supervised_dispatch(
                     "knn.search", lambda: self.topk(queries, k_eff, metric)
                 )

@@ -10,14 +10,18 @@ table (``protocol``), the multi-process group and its exchange
 KNN index with one shard per mesh device whose partial top-k results
 merge into the global top-k (``sharded_knn``), in place of the
 reference's broadcast-replicated index (external_index.rs:95 — a full
-copy per worker). The exported names load on first use, so importing one
-submodule imports none of the others. Ring attention, training and the
-multi-process device mesh come with later slices of the port.
+copy per worker); and the ``torch.distributed`` process group of the
+ranks that ``python -m pathway_tpu_torch spawn`` starts
+(``distributed``). The exported names load on first use, so importing one
+submodule imports none of the others. Ring attention and training come
+with later slices of the port.
 """
 
 import importlib
 
 _EXPORTS = {
+    "initialize_from_env": "distributed",
+    "global_mesh": "distributed",
     "best_factorization": "mesh",
     "make_mesh": "mesh",
     "Mesh": "mesh",
@@ -27,6 +31,7 @@ _EXPORTS = {
 
 __all__ = [
     "autoscale", "procgroup", "protocol", "supervisor", "mesh", "sharded_knn",
+    "distributed",
     *_EXPORTS,
 ]
 

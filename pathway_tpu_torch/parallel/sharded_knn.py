@@ -44,6 +44,7 @@ from pathway_tpu_torch.internals.device import (
     nbytes_of,
     resolve_device,
     sharded_search_bucket,
+    sharded_write_bucket,
 )
 from pathway_tpu_torch.internals.faults import fault_point
 from pathway_tpu_torch.ops.fused_knn import (
@@ -238,6 +239,8 @@ class ShardedKnnIndex:
         self._dirty_removed: dict[Any, None] = {}
         self._segments: list[dict] = []
         self._retired: list[list[str]] = []
+        # shape buckets met by the write and search sites
+        self._seen_buckets: set = set()
 
     # device sites reachable through this index as an external-index
     # adapter
@@ -413,6 +416,8 @@ class ShardedKnnIndex:
             raise ValueError("keys/vectors length mismatch")
         with self.lock:
             slots = self._assign_slots(keys)
+            _DEVICE.note_bucket(self._seen_buckets, "knn.sharded_write",
+                                sharded_write_bucket(len(slots), self.capacity))
             dev = _DEVICE.begin("knn.sharded_write", self.device) if _DEVICE.on else None
             try:
                 # supervised: injected faults raise before the launch, so
@@ -535,10 +540,12 @@ class ShardedKnnIndex:
             dev = _DEVICE.begin("knn.sharded_search", self.device) if _DEVICE.on else None
             try:
                 with self.lock:  # read + launch before the next in-place write
-                    _, _, k_eff = sharded_search_bucket(
+                    bucket = sharded_search_bucket(
                         n, self.n_shards, self.local_cap, k, None
                     )
-                    k_eff = min(k_eff, K_MAX)
+                    _DEVICE.note_bucket(
+                        self._seen_buckets, "knn.sharded_search", bucket)
+                    k_eff = min(bucket[2], K_MAX)
                     used = self.rows_in_use()
                     vals, idx = _devsup.supervised_dispatch(
                         "knn.sharded_search",

@@ -247,7 +247,7 @@ def test_encoder_forward_replays_a_graph_equal_to_eager(gen):
     graphed = SentenceEncoder(EncoderConfig.bge_small(), batch_size=64)
     eager = SentenceEncoder(EncoderConfig.bge_small(), batch_size=64)
 
-    def eager_forward(ids, mask):
+    def eager_forward(ids, mask, **_):
         with torch.inference_mode():
             return eager.model(ids, mask)
 
@@ -349,3 +349,144 @@ def test_snapshot_restore_on_the_card_is_bit_identical(gen, tmp_path):
         with isnap.cut(pm, 0):
             fresh.load_state(state)
         assert fresh.search(q, 10) == want
+
+
+# -- checkpoints, supervised ingest and the recompile counter on the card ----
+
+_SMALL = dict(vocab_size=30522, hidden=64, layers=2, heads=4, mlp=128, max_len=512)
+
+
+def _write_hf_checkpoint(path, cfg, seed):
+    """A checkpoint of ``cfg``'s geometry in the HF layout, written without
+    ``transformers`` (the card's machine has none): the port's seeded
+    weights under BERT's names. Returns them under the port's names."""
+    import json
+    import os
+    import shutil
+
+    from pathway_tpu_torch.models import init_params
+    from pathway_tpu_torch.models.tokenizer import VOCAB_ASSET
+
+    params = init_params(cfg, seed)
+    names = {"tok_embed": "embeddings.word_embeddings",
+             "pos_embed": "embeddings.position_embeddings",
+             "type_embed": "embeddings.token_type_embeddings",
+             "ln_embed": "embeddings.LayerNorm"}
+    for i in range(cfg.layers):
+        hf, pt = f"encoder.layer.{i}.", f"blocks.{i}."
+        for proj in ("query", "key", "value"):
+            names[pt + f"attention.{proj}"] = hf + f"attention.self.{proj}"
+        names.update({pt + "attention.out": hf + "attention.output.dense",
+                      pt + "ln_attn": hf + "attention.output.LayerNorm",
+                      pt + "mlp_in": hf + "intermediate.dense",
+                      pt + "mlp_out": hf + "output.dense",
+                      pt + "ln_mlp": hf + "output.LayerNorm"})
+    sd = {}
+    for name, t in params.items():
+        module, leaf = name.rsplit(".", 1)
+        sd[f"bert.{names[module]}.{leaf}"] = t
+    os.makedirs(path, exist_ok=True)
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden,
+                   "num_hidden_layers": cfg.layers, "num_attention_heads": cfg.heads,
+                   "intermediate_size": cfg.mlp,
+                   "max_position_embeddings": cfg.max_len}, f)
+    shutil.copy(VOCAB_ASSET, os.path.join(path, "vocab.txt"))
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"do_lower_case": True}, f)
+    return params
+
+
+def test_checkpoint_loads_on_the_card(gen, tmp_path, monkeypatch):
+    """``SentenceEncoder(checkpoint=dir)`` on the card: the weights bit for
+    bit, read without ``transformers``, and embeddings within cosine 0.999
+    of the same checkpoint on the CPU (bf16 on both)."""
+    import sys
+
+    from pathway_tpu_torch.models import EncoderConfig, SentenceEncoder
+
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    cfg = EncoderConfig(**_SMALL)
+    written = _write_hf_checkpoint(str(tmp_path), cfg, seed=7)
+    enc = SentenceEncoder(checkpoint=str(tmp_path))
+    assert enc.device.type == "cuda" and enc.config == cfg
+    loaded = enc.model.state_dict()
+    assert loaded.keys() == written.keys()
+    for name, t in written.items():
+        assert torch.equal(loaded[name].cpu(), t), name
+    cpu = SentenceEncoder(checkpoint=str(tmp_path), device="cpu")
+    texts = ["the cat sat on the mat", "checkpoint weights on the card " * 9]
+    a, b = enc.encode(texts), cpu.encode(texts)
+    assert ((a * b).sum(-1) >= 0.999).all()
+
+
+def _small_pipeline():
+    from pathway_tpu_torch.models import EncoderConfig, SentenceEncoder
+    from pathway_tpu_torch.ops import IngestPipeline, KnnShard
+
+    enc = SentenceEncoder(EncoderConfig(**_SMALL), batch_size=64)
+    shard = KnnShard(enc.embed_dim, "cos", capacity=256)
+    return enc, shard, IngestPipeline(enc, shard)
+
+
+def test_supervised_ingest_on_the_card(gen):
+    """Two transient H2D staging faults: two retries at ``ingest.fused``,
+    every row equal to a fault-free ingest; a permanent fault raises."""
+    from pathway_tpu_torch.internals import device as devplane
+    from pathway_tpu_torch.internals import faults
+    from pathway_tpu_torch.internals.monitoring import ProberStats
+    from pathway_tpu_torch.ops import IngestPipeline, KnnShard
+
+    enc, shard, pipe = _small_pipeline()
+    keys = [f"d{i}" for i in range(128)]
+    texts = [f"document {i} about topic {i % 7}" for i in range(128)]
+    batches = [(keys[i:i + 32], texts[i:i + 32]) for i in range(0, 128, 32)]
+    clean = KnnShard(enc.embed_dim, "cos", capacity=256)
+    IngestPipeline(enc, clean).run(iter(batches))
+    stats = ProberStats()
+    faults.install_plan({"rules": [
+        {"point": "device.h2d", "hits": [1, 3], "action": "raise"}]})
+    devplane.PLANE.arm(None, stats)
+    try:
+        assert pipe.run(iter(batches)) == 128
+    finally:
+        devplane.PLANE.disarm()
+        faults.clear_plan()
+    assert stats.device_dispatch_retries.get("ingest.fused") == 2
+    got = shard.vectors[[shard.key_to_slot[k] for k in keys]]
+    want = clean.vectors[[clean.key_to_slot[k] for k in keys]]
+    assert torch.equal(got, want)
+    faults.install_plan({"rules": [
+        {"point": "device.h2d", "action": "raise", "retryable": False}]})
+    try:
+        with pytest.raises(faults.InjectedFault):
+            pipe.run(iter([(["new"], ["a new document"])]))
+    finally:
+        faults.clear_plan()
+    assert len(shard) == 128
+
+
+def test_recompiles_equal_the_captured_graphs(gen):
+    """A new bucket at ``encoder.forward`` or ``ingest.fused`` is exactly
+    one CUDA graph captured for it."""
+    from pathway_tpu_torch.internals import device as devplane
+    from pathway_tpu_torch.internals.monitoring import ProberStats
+
+    enc, _, pipe = _small_pipeline()
+    stats = ProberStats()
+    devplane.PLANE.arm(None, stats)
+    try:
+        texts = ["short text", "a much longer text about many things " * 8]
+        for batch in (texts[:1], texts, texts * 9, texts):
+            enc.encode(batch)
+        for n in (3, 3, 40):
+            pipe.ingest([f"k{i}" for i in range(n)], (texts * n)[:n])
+    finally:
+        devplane.PLANE.disarm()
+    graphs = {}
+    for site, _ in enc._graphs:
+        graphs[site] = graphs.get(site, 0) + 1
+    assert all(g is not None for g in enc._graphs.values())
+    assert graphs["encoder.forward"] >= 3 and graphs["ingest.fused"] == 2
+    assert {s: stats.device_recompiles[s] for s in graphs} == graphs

@@ -190,6 +190,19 @@ def scen_file_io(pw, fmt, tmp_path):
     return header, sorted(recs, key=lambda r: (r["k"], r["time"]))
 
 
+def scen_demo_streams(pw):
+    """``pw.demo``'s synthetic streams (the port's copy of the demo)."""
+    rows = []
+    for t in (pw.demo.range_stream(nb_rows=6, offset=3, input_rate=0),
+              pw.demo.noisy_linear_stream(nb_rows=5, input_rate=0)):
+        pw.io.subscribe(
+            t, on_change=lambda key, row, time, is_addition: rows.append(
+                (sorted(row.items()), is_addition)),
+        )
+    pw.run()
+    return sorted(rows)
+
+
 SCENARIOS = {
     "select_filter": scen_select_filter,
     "groupby_reduce": scen_groupby_reduce,
@@ -200,6 +213,7 @@ SCENARIOS = {
     "tumbling_window": scen_tumbling_window,
     "iterate": scen_iterate,
     "streaming_subscribe": scen_streaming_subscribe,
+    "demo_streams": scen_demo_streams,
 }
 
 

@@ -183,7 +183,9 @@ def test_registered_sites():
     import pathway_tpu_torch.models.encoder  # noqa: F401
 
     sites = tdev.registered_sites()
-    assert {"knn.write", "knn.search", "encoder.forward"} <= set(sites)
+    import pathway_tpu_torch.ops.ingest  # noqa: F401
+
+    assert {"knn.write", "knn.search", "encoder.forward", "ingest.fused"} <= set(sites)
     assert sites["knn.search"].cost_model(1, 1024, 384, 10)[0] > 0
 
 
@@ -207,3 +209,167 @@ def test_no_device_story_without_cuda():
     assert tdev.memory_stats() is None
     assert tdev.platform_info() is None
     assert tdev.device_kind() == ""
+
+
+# -- supervised ingest and the recompile counter -----------------------------
+
+TEXTS = [
+    "the quick brown fox jumps over the lazy dog",
+    "pack my box with five dozen liquor jugs",
+    "sphinx of black quartz judge my vow",
+    "how vexingly quick daft zebras jump",
+    "a live dataflow framework for tpu pods",
+]
+
+
+def _pipeline(pkg, capacity=128):
+    """(encoder, shard, IngestPipeline) of the tiny encoder in ``pkg``."""
+    if pkg == "jax":
+        from pathway_tpu.models.encoder import EncoderConfig, SentenceEncoder
+        from pathway_tpu.ops.ingest import IngestPipeline
+
+        enc = SentenceEncoder(EncoderConfig.tiny())
+        shard = JShard(enc.embed_dim, "cos", capacity=capacity)
+        return enc, shard, IngestPipeline(enc, shard)
+    from pathway_tpu_torch.models.encoder import EncoderConfig, SentenceEncoder
+    from pathway_tpu_torch.ops.ingest import IngestPipeline
+
+    enc = SentenceEncoder(EncoderConfig.tiny(), device="cpu")
+    shard = TShard(enc.embed_dim, "cos", capacity=capacity, device="cpu")
+    return enc, shard, IngestPipeline(enc, shard, device="cpu")
+
+
+@pytest.mark.parametrize("pkg", sorted(PACKAGES))
+def test_ingest_producer_restarts_through_classifier(pkg):
+    dev, faults, Stats, _ = PACKAGES[pkg]
+    _, shard, pipe = _pipeline(pkg)
+    texts = ["alpha beta", "gamma delta", "epsilon zeta", "eta theta"]
+    batches = [(["a", "b"], texts[:2]), (["c", "d"], texts[2:])]
+    # transient staging failures (device.h2d) restart the producer on the
+    # SAME batch with backoff; the run completes with no loss
+    faults.install_plan({"rules": [
+        {"point": "device.h2d", "hits": [1, 3], "action": "raise"},
+    ]})
+    stats = Stats()
+    dev.PLANE.arm(None, stats)
+    try:
+        assert pipe.run(iter(batches)) == 4
+    finally:
+        dev.PLANE.disarm()
+    assert len(shard) == 4
+    assert stats.device_dispatch_retries.get("ingest.fused") == 2
+    if pkg == "torch":
+        # each row equals a fault-free ingest of the same batch, and no
+        # slot was assigned twice
+        faults.clear_plan()
+        _, clean, clean_pipe = _pipeline(pkg)
+        clean_pipe.run(iter(batches))
+        assert shard.key_to_slot == clean.key_to_slot
+        assert torch.equal(shard.vectors, clean.vectors)
+        assert torch.equal(shard.valid, clean.valid)
+    # a permanent staging failure surfaces raw: no endless restart
+    faults.clear_plan()
+    faults.install_plan({"rules": [
+        {"point": "device.h2d", "action": "raise", "retryable": False},
+    ]})
+    with pytest.raises(faults.InjectedFault):
+        pipe.run(iter([(["e"], ["iota kappa"])]))
+    assert len(shard) == 4
+
+
+def test_ingest_fault_fires_before_the_copy_is_staged():
+    """The ``device.h2d`` point fires before anything of the batch is
+    staged, and a fault in the chain itself (``device.dispatch``) retries
+    the launch under ``supervised_dispatch`` without a second slot."""
+    _, shard, pipe = _pipeline("torch")
+    tfaults.install_plan({"rules": [
+        {"point": "device.dispatch", "hits": [1], "action": "raise"},
+    ]})
+    stats = TStats()
+    tdev.PLANE.arm(None, stats)
+    try:
+        pipe.ingest(["a", "b"], TEXTS[:2])
+    finally:
+        tdev.PLANE.disarm()
+    assert len(shard) == 2 and shard.key_to_slot == {"a": 0, "b": 1}
+    assert stats.device_dispatch_retries.get("ingest.fused") == 1
+    tfaults.clear_plan()
+    tfaults.install_plan({"rules": [
+        {"point": "device.h2d", "action": "raise", "retryable": False},
+    ]})
+    with pytest.raises(tfaults.InjectedFault):
+        pipe._stage(["c"], TEXTS[2:3])
+    assert len(shard) == 2
+
+
+@pytest.mark.parametrize("pkg", sorted(PACKAGES))
+def test_ingest_recompile_counter_counts_new_buckets_once(pkg):
+    dev, _, Stats, _ = PACKAGES[pkg]
+    _, _, pipe = _pipeline(pkg)
+    stats = Stats()
+    dev.PLANE.arm(None, stats)
+    try:
+        keys = [f"doc{i}" for i in range(len(TEXTS))]
+        pipe.ingest(keys, TEXTS)        # a new (batch, seq, cap) bucket
+        pipe.ingest(keys, TEXTS)        # the same bucket
+        # 20 docs land in a larger pow2 batch bucket
+        pipe.ingest([f"n{i}" for i in range(20)], TEXTS * 4)
+    finally:
+        dev.PLANE.disarm()
+    assert stats.device_recompiles == {"ingest.fused": 2}
+    text = stats.render_openmetrics()
+    assert "device_recompiles_total 2" in text
+    assert 'device_site_recompiles_total{site="ingest.fused"} 2' in text
+
+
+@pytest.mark.parametrize("pkg", sorted(PACKAGES))
+def test_encoder_bucket_cache_notes_recompiles(pkg):
+    dev, _, Stats, _ = PACKAGES[pkg]
+    enc, _, _ = _pipeline(pkg)
+    stats = Stats()
+    dev.PLANE.arm(None, stats)
+    try:
+        enc.encode(TEXTS)       # a fresh (batch, seq) bucket
+        enc.encode(TEXTS)       # cached: no new note
+        enc.encode(TEXTS * 4)   # a larger batch bucket
+    finally:
+        dev.PLANE.disarm()
+    assert stats.device_recompiles == {"encoder.forward": 2}
+    assert "device_recompiles_total 2" in stats.render_openmetrics()
+
+
+def test_ingest_site_records_effective_flops():
+    _, _, pipe = _pipeline("torch")
+    stats = TStats()
+    tdev.PLANE.arm(None, stats)
+    try:
+        pipe.ingest([f"d{i}" for i in range(len(TEXTS))], TEXTS)
+    finally:
+        tdev.PLANE.disarm()
+    agg = stats.device_sites.get("ingest.fused")
+    assert agg is not None and agg[0] == 1
+    # 5 real docs in a pow2 batch bucket with padded seq: the effective
+    # share is the real-token fraction, strictly below 1
+    assert 0 < agg[6] < agg[3]
+    assert ('device_site_flops_effective_total{site="ingest.fused"}'
+            in stats.render_openmetrics())
+
+
+def test_knn_sites_note_the_buckets_the_jax_package_notes():
+    rng = np.random.default_rng(0)
+    counts = {}
+    for pkg, (dev, _, Stats, make) in PACKAGES.items():
+        shard = make(16)
+        stats = Stats()
+        dev.PLANE.arm(None, stats)
+        try:
+            for n in (3, 3, 5, 200):  # 200 rows grow the capacity
+                shard.add([f"{n}-{i}" for i in range(n)],
+                          rng.normal(size=(n, 16)).astype(np.float32))
+            for q, k in ((1, 5), (1, 5), (3, 5), (3, 7), (9, 5)):
+                shard.search(rng.normal(size=(q, 16)).astype(np.float32), k)
+        finally:
+            dev.PLANE.disarm()
+        counts[pkg] = dict(stats.device_recompiles)
+    assert counts["torch"] == counts["jax"]
+    assert counts["torch"] == {"knn.write": 3, "knn.search": 4}

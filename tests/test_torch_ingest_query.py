@@ -299,3 +299,28 @@ def test_update_while_serving_consistency():
     ut.join(timeout=30)
     assert not errors, errors
     assert not ut.is_alive() and not any(q.is_alive() for q in qs)
+
+
+def test_faulted_run_state_matches_jax():
+    """Transient ``device.h2d`` faults at hits 1 and 3 in both packages:
+    each producer restarts on the same batch, and the two indexes end as
+    the fault-free ingest leaves them (same slots, vectors at atol 1e-5)."""
+    from pathway_tpu.internals import faults as jfaults
+    from pathway_tpu_torch.internals import faults as tfaults
+
+    je, te = _encoders()
+    jshard = JaxShard(je.embed_dim, "cos")
+    tshard = KnnShard(te.embed_dim, "cos", device=CPU)
+    plan = {"rules": [{"point": "device.h2d", "hits": [1, 3], "action": "raise"}]}
+    try:
+        for faults, pipe in ((jfaults, JaxPipeline(je, jshard)),
+                             (tfaults, IngestPipeline(te, tshard, device=CPU))):
+            faults.install_plan(plan)
+            assert pipe.run(iter(_batches())) == len(DOCS)
+            assert faults.active_plan().hit_counts()["device.h2d"] == 2 + len(_batches())
+    finally:
+        jfaults.reset()
+        tfaults.reset()
+    assert tshard.key_to_slot == jshard.key_to_slot
+    np.testing.assert_allclose(tshard.vectors.numpy(), np.asarray(jshard.vectors), atol=1e-5)
+    np.testing.assert_array_equal(tshard.valid.numpy(), np.asarray(jshard.valid))

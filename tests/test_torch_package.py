@@ -40,6 +40,30 @@ def test_import_loads_no_jax_and_no_jax_package():
     assert "BAD []" in out.stdout, out.stdout
 
 
+@pytest.mark.parametrize("module", [
+    "pathway_tpu_torch.models.hf_loader",
+    "pathway_tpu_torch.cli",
+    "pathway_tpu_torch.demo",
+    "pathway_tpu_torch.parallel.distributed",
+])
+def test_modules_of_the_launcher_and_the_loader_load_no_jax(module):
+    out = _run(
+        f"import sys, importlib; importlib.import_module({module!r})\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'pathway_tpu')\n"
+        "       or m.startswith(('jax.', 'flax.', 'pathway_tpu.'))]\n"
+        "print('BAD', bad)"
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_python_m_pathway_tpu_torch_is_the_cli():
+    out = _run(["-m", "pathway_tpu_torch", "--help"])
+    assert out.returncode == 0, out.stderr
+    for command in ("spawn", "replay", "spawn-from-env", "airbyte"):
+        assert command in out.stdout
+
+
 RUN_SCRIPT = """
 import sys
 import pathway_tpu_torch as pw
@@ -179,9 +203,9 @@ def test_native_build_dir_override_keeps_the_packages_apart(tmp_path):
     assert "a | 3" in second.stdout and "b | 3" in second.stdout, second.stdout
 
 
-# names of ``pathway_tpu`` that come with later slices of the port: the
-# plan doctor (``analysis`` beyond ``eligibility``/``knobs``) and the demo
-DEFERRED = {"analysis", "analyze", "PlanReport", "demo"}
+# names of ``pathway_tpu`` that come with a later slice of the port: the
+# plan doctor (``analysis`` beyond ``eligibility``/``knobs``)
+DEFERRED = {"analysis", "analyze", "PlanReport"}
 
 
 def test_pw_namespace_matches_the_jax_package():
@@ -228,6 +252,7 @@ def test_no_source_file_imports_the_jax_package():
     [
         "resolve_device(None)",
         "SentenceEncoder(EncoderConfig.tiny())",
+        "SentenceEncoder(checkpoint='no-such-checkpoint')",
         "KnnShard(8)",
         "IngestPipeline(SentenceEncoder(EncoderConfig.tiny(), device='cpu'),"
         " KnnShard(64, device='cpu'))",

@@ -811,3 +811,33 @@ def test_parity_at_shapes_where_the_cpu_product_rounds_by_shape(
         index.add(list(range(3000)), db)
         index.remove(list(range(0, 3000, 9)))
     _assert_bit_identical(idx.search(q, 10), ref.search(q, 10))
+
+
+def test_sharded_sites_note_each_new_bucket_once(mesh8):
+    """``knn.sharded_write`` / ``knn.sharded_search`` note a recompile on
+    each new bucket of the shared bucket functions, as the JAX package's
+    sites do; the shards' own kernel-pair site (``knn.fused``) is not
+    reached on the CPU, where the plain scan runs."""
+    from pathway_tpu_torch.internals.device import (
+        sharded_search_bucket, sharded_write_bucket,
+    )
+    from pathway_tpu_torch.internals.monitoring import ProberStats
+
+    idx, _ = _pair(mesh8)
+    stats = ProberStats()
+    PLANE.arm(None, stats)
+    rng = np.random.default_rng(0)
+    writes, searches = set(), set()
+    try:
+        for n in (5, 5, 9, 3000):  # 3000 rows grow the shards
+            idx.add([f"{n}-{i}" for i in range(n)],
+                    rng.normal(size=(n, 16)).astype(np.float32))
+            writes.add(sharded_write_bucket(n, idx.capacity))
+        for q, k in ((1, 5), (1, 5), (3, 5), (3, 9)):
+            idx.search(rng.normal(size=(q, 16)).astype(np.float32), k)
+            searches.add(sharded_search_bucket(q, idx.n_shards, idx.local_cap, k, None))
+    finally:
+        PLANE.disarm()
+    assert stats.device_recompiles == {
+        "knn.sharded_write": len(writes), "knn.sharded_search": len(searches)}
+    assert len(writes) == 3 and len(searches) == 3
