@@ -88,11 +88,30 @@ Phases (each prints one JSON line; any failure exits non-zero):
             over its indexes (a miss reports why: ``miss_detail``); the
             restart's time to its first answer and the first run's ingest
             time;
-10. report  the ``kernels`` JSON line (launches summed over every phase),
+10. doctor  the plan doctor and the Device Doctor on the card:
+            ``pw.analyze(device=True)`` of the dataflow phase's own program
+            must equal ``analyze_scope`` of its running engine, whose
+            fallback counters ``audit_runtime`` holds against it;
+            ``analyze_device_plan`` of the main phase's workload (bge-small,
+            2^20 rows, its ingest batches and fills, queries of 1 / 32 /
+            256 at k = 10), budgeted at the card's memory, must be
+            device-clean and its ``over_budget`` mutant device-dirty, with
+            no kernel launch and no byte allocated; a traced window of the
+            main path (a fresh encoder from the checkpoint and a 2^20-row
+            ``KnnShard``: one ingest batch and one ``QueryEngine.query`` of
+            256 texts per predicted bucket) must capture exactly the
+            predicted CUDA graphs at ``encoder.forward`` and
+            ``ingest.fused``, and ``profile_trace`` / ``critical_path`` of
+            its flight-recorder trace report ``knn.fused`` with its MFU
+            and roofline verdict against the card's peaks; ``python -m
+            pathway_tpu_torch.analysis --device-plan --json`` exits 0 with
+            the card's budget, ``--device-mutant over_budget`` exits 2 and
+            a ``--mesh`` check exits 0;
+11. report  the ``kernels`` JSON line (launches summed over every phase),
             then the device line.
 
 The phases run in the order build, kernels, main, supervised, sharded,
-snapshot, spawn, persisted, dataflow.
+snapshot, spawn, persisted, dataflow, doctor.
 
 It needs one CUDA card and the rest of the repository beside it; without
 either it exits non-zero and prints no result.
@@ -101,6 +120,7 @@ either it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import socket
@@ -1096,6 +1116,17 @@ def phase_dataflow(fk, seed: int):
         return out
 
     nn_mod._KnnAdapter.search = recording_search
+    # the Runtime pw.run builds, for the doctor phase's plan-vs-run audit
+    from pathway_tpu_torch.engine.runtime import Runtime
+
+    runtimes: list = []
+    runtime_init = Runtime.__init__
+
+    def keeping_runtime(self, *a, **kw):
+        runtime_init(self, *a, **kw)
+        runtimes.append(self)
+
+    Runtime.__init__ = keeping_runtime
 
     port = free_port()
     docs_table = pw.io.fs.read(
@@ -1138,6 +1169,9 @@ def phase_dataflow(fk, seed: int):
     if count != DF_DOCS:
         fail(f"statistics count {count} files, wrote {DF_DOCS}")
     ingest_launches = dict(fk.LAUNCHES)
+    Runtime.__init__ = runtime_init
+    if len(runtimes) != 1:
+        fail(f"pw.run built {len(runtimes)} runtimes")
 
     # serving window: 256 retrieves from 16 threads, then 16 answers
     stats = ProberStats()
@@ -1248,7 +1282,7 @@ def phase_dataflow(fk, seed: int):
         fail(f"the dataflow phase launched no KNN kernel: {launches}")
     if "jax" in sys.modules or any(m.startswith("pathway_tpu.") for m in sys.modules):
         fail("JAX or the JAX package was imported")
-    return launches
+    return launches, runtimes[0]
 
 
 def four_shards():
@@ -1707,6 +1741,263 @@ def phase_persisted(seed: int):
     return launches
 
 
+# the doctor phase: the Device Doctor's declared workload is the main
+# phase's own (its ingest batches, its 64k-row fills, its query batches)
+DOCTOR_QUERY_BATCHES = (1, 32, 256)
+DOCTOR_FILL_STEP = 1 << 16
+
+
+def doctor_workload(pt, enc, docs):
+    """The main phase's workload as the doctor declares it: every ingest
+    batch as (rows, token length) through the encoder's own tokenizer,
+    the fill as 64k-row writes, queries of 1 / 32 / 256 at k = 10."""
+    from pathway_tpu_torch.analysis.device_plan import WorkloadSpec
+
+    batches = [docs[i:i + DOC_BATCH] for i in range(0, N_DOCS, DOC_BATCH)]
+    fill = CAP - N_DOCS
+    return batches, WorkloadSpec(
+        ingest_batches=tuple(
+            (len(b), enc.tokenizer(b)[0].shape[1]) for b in batches),
+        write_batches=tuple(
+            min(DOCTOR_FILL_STEP, fill - i) for i in range(0, fill, DOCTOR_FILL_STEP)),
+        query_batches=DOCTOR_QUERY_BATCHES, ks=(K,), corpus_rows=CAP,
+        batch_cap=DOC_BATCH, initial_capacity=CAP,
+    )
+
+
+def run_doctor_cli(*args) -> subprocess.Popen:
+    """``python -m pathway_tpu_torch.analysis`` in a fresh process, with
+    the card's own budget (no override)."""
+    env = {k: v for k, v in os.environ.items() if k != "PATHWAY_DEVICE_HBM_BYTES"}
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, "-m", "pathway_tpu_torch.analysis", *args],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+
+
+def phase_doctor(pt, fk, ckpt: str, seed: int, df_runtime):
+    """The plan doctor and the Device Doctor on the card: the dataflow
+    program's plan against its running engine, the device plan of the
+    main phase's workload at full width (budgeted at the card's memory,
+    launching and allocating nothing), its predictions against a traced
+    window of the main path, and the CLI."""
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.analysis import analyzer as pa
+    from pathway_tpu_torch.analysis.critical_path import critical_path
+    from pathway_tpu_torch.analysis.device_plan import (
+        analyze_device_plan, join_profile,
+    )
+    from pathway_tpu_torch.analysis.profile import profile_trace
+    from pathway_tpu_torch.internals import device as devplane
+    from pathway_tpu_torch.internals.flight import FlightRecorder
+    from pathway_tpu_torch.internals.monitoring import ProberStats
+
+    t_phase = time.perf_counter()
+    # the CLI runs in fresh processes beside the phase
+    clis = {
+        "device_plan": run_doctor_cli("--device-plan", "--json"),
+        "over_budget": run_doctor_cli("--device-plan", "--device-mutant", "over_budget"),
+        "mesh": run_doctor_cli("--mesh", "--processes", "3", "--mesh-rounds", "1"),
+    }
+    row: dict = {"phase": "doctor"}
+
+    # -- the plan doctor: the dataflow program, static and running --------
+    t0 = time.perf_counter()
+    static = pw.analyze(device=True)
+    real = pa.analyze_scope(df_runtime, device=True)
+    row["plan_s"] = time.perf_counter() - t0
+
+    def shape(r):
+        return [r.verdict, [[n["node"], n["kind"], n["verdict"]] for n in r.nodes],
+                [[d.code, d.severity, d.node] for d in r.diagnostics]]
+
+    audit = pa.audit_runtime(df_runtime, real)
+    row["plan"] = {"verdict": static.verdict, "nodes": len(static.nodes),
+                   "diagnostics": len(static.diagnostics),
+                   "device": static.device["verdict"],
+                   "reachable_sites": static.device["reachable_sites"],
+                   "audit_problems": audit}
+    if shape(static) != shape(real) or audit:
+        fail(f"the dataflow program's static plan and its run disagree: {audit}")
+    if static.device["verdict"] != "device-clean" or not {
+            "knn.write", "knn.search"} <= set(static.device["reachable_sites"]):
+        fail(f"the dataflow program's device sub-report: {static.device['verdict']}, "
+             f"{static.device['reachable_sites']}")
+
+    # -- the Device Doctor at full width, launching and allocating nothing -
+    enc = pt.SentenceEncoder(checkpoint=ckpt, batch_size=DOC_BATCH)
+    docs = make_docs(vocab_words(), np.random.default_rng(seed), N_DOCS)
+    batches, spec = doctor_workload(pt, enc, docs)
+    cfg = pt.EncoderConfig.bge_small()
+    total = torch.cuda.get_device_properties(0).total_memory
+
+    def device_memory():
+        # bytes held now, and bytes ever allocated (a counter that only
+        # an allocation moves)
+        return (torch.cuda.memory_allocated(),
+                torch.cuda.memory_stats()["allocated_bytes.all.allocated"])
+
+    # garbage of earlier phases is freed first, and the collector is held
+    # off while the doctor runs, so what it frees cannot read as its own
+    gc.collect()
+    gc.disable()
+    try:
+        torch.cuda.synchronize()
+        before = (dict(fk.LAUNCHES), device_memory())
+        t0 = time.perf_counter()
+        report = analyze_device_plan(workload=spec, config=cfg)
+        row["device_plan_s"] = time.perf_counter() - t0
+        mutant = analyze_device_plan(workload=spec, config=cfg, mutant="over_budget")
+        torch.cuda.synchronize()
+        after = (dict(fk.LAUNCHES), device_memory())
+    finally:
+        gc.enable()
+    row["device_plan"] = {
+        "verdict": report.verdict, "chains": report.chains,
+        "predicted": {s: p["recompiles"] for s, p in report.predictions.items()},
+        "hbm": report.hbm, "over_budget_verdict": mutant.verdict,
+        "launches_moved": after[0] != before[0],
+        "allocated_moved_bytes": after[1][0] - before[1][0],
+        "bytes_allocated_during": after[1][1] - before[1][1],
+    }
+    if after != before:
+        fail(f"the Device Doctor launched or allocated: {before} -> {after}")
+    if report.verdict != "device-clean":
+        fail(f"the main workload is {report.verdict}:\n{report.render()}")
+    if report.hbm["budget_bytes"] != total:
+        fail(f"budget {report.hbm['budget_bytes']} is not the card's {total} bytes")
+    if mutant.verdict != "device-dirty" or not any(
+            d.code == "device.hbm.over_budget" for d in mutant.diagnostics):
+        fail(f"the over_budget mutant came back {mutant.verdict}")
+
+    # -- its predictions against a traced window of the main path --------
+    # one ingest batch per predicted ingest bucket, one query batch of 256
+    # texts per predicted encoder bucket, into a fresh encoder's graphs
+    from pathway_tpu_torch.internals.device import (
+        batch_bucket, encoder_bucket, ingest_bucket, seq_bucket,
+    )
+
+    by_ingest: dict = {}
+    by_encoder: dict = {}
+    for i, (n, L) in enumerate(spec.ingest_batches):
+        nb, Lb = batch_bucket(n, 8, DOC_BATCH), seq_bucket(L, cfg.max_len)
+        by_ingest.setdefault(ingest_bucket(nb, Lb, CAP, "uint16"), i)
+        by_encoder.setdefault(encoder_bucket(nb, Lb, True), i)
+    window = sorted(set(by_ingest.values()))
+    if sorted(set(by_encoder.values())) != window:
+        fail("the ingest and encoder buckets of the main batches do not pair up")
+    shard = pt.KnnShard(cfg.hidden, "cos", capacity=CAP)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    fill = CAP - DOC_BATCH * len(window)
+    for start in range(0, fill, DOCTOR_FILL_STEP):
+        n = min(DOCTOR_FILL_STEP, fill - start)
+        shard.add(range(start, start + n), unit_rows(gen, n, cfg.hidden))
+    pipe = pt.IngestPipeline(enc, shard)
+    engine = pt.QueryEngine(enc, shard, k=K)
+    trace_path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_trace_"), "trace.json")
+    rec, stats = FlightRecorder(trace_path), ProberStats()
+    torch.cuda.synchronize()
+    devplane.PLANE.arm(rec, stats)
+    zero_launches(fk)  # counts of this phase only
+    t0 = time.perf_counter()
+    try:
+        for i in window:
+            pipe.ingest([f"doc{i * DOC_BATCH + j}" for j in range(len(batches[i]))],
+                        batches[i])
+        results = {i: engine.query(batches[i]) for i in window}
+        torch.cuda.synchronize()
+    finally:
+        devplane.PLANE.disarm()
+    row["window_ms"] = 1e3 * (time.perf_counter() - t0)
+    launches = dict(fk.LAUNCHES)
+    rec.dump()
+    graphs: dict = {}
+    for site, _ in enc._graphs:
+        graphs[site] = graphs.get(site, 0) + 1
+    joined = join_profile(report, {"device_recompiles": dict(stats.device_recompiles)})
+    row["recompiles"] = {
+        site: {"predicted": joined.predictions[site]["recompiles"],
+               "measured": joined.predictions[site].get("measured_recompiles"),
+               "cuda_graphs": graphs.get(site, 0),
+               "drift": joined.predictions[site].get("drift")}
+        for site in ("encoder.forward", "ingest.fused", "knn.fused")
+    }
+    for site in ("encoder.forward", "ingest.fused"):
+        r = row["recompiles"][site]
+        if not r["predicted"] == r["measured"] == r["cuda_graphs"]:
+            fail(f"{site}: predicted {r['predicted']} recompiles, noted "
+                 f"{r['measured']}, captured {r['cuda_graphs']} CUDA graphs")
+    if joined.verdict != "device-clean":
+        fail(f"predictions against the window: {joined.verdict}")
+    hits = [f"doc{i * DOC_BATCH + j}" in [key for key, _ in r]
+            for i, res in results.items() for j, r in enumerate(res)]
+    row["recall_own_doc_top10"] = float(np.mean(hits))
+    if any(len(r) != K or not all(np.isfinite(s) for _, s in r)
+           for res in results.values() for r in res):
+        fail("the window's queries returned wrong or non-finite hits")
+    if row["recall_own_doc_top10"] < RECALL_MIN:
+        fail(f"window recall {row['recall_own_doc_top10']} < {RECALL_MIN}")
+    row["launches"] = launches
+    if launches.get("fused_knn", 0) <= 0:
+        fail(f"the doctor's window launched no KNN kernel: {launches}")
+
+    # -- knn.fused through the trace analyzers, against the card's peaks --
+    prof = profile_trace(trace_path)
+    cp = critical_path(trace_path)
+    if not prof["valid"] or not cp["valid"]:
+        fail(f"the window's trace: {prof['problems'][:3]} {cp['problems'][:3]}")
+    sites = {s["site"]: s for s in prof["device"]["sites"]}
+    cp_sites = {s["site"]: s for s in (cp.get("device") or {}).get("sites", [])}
+    fused = sites.get("knn.fused")
+    if fused is None or "knn.fused" not in cp_sites:
+        fail(f"knn.fused missing from the trace analyzers: {sorted(sites)}")
+    row["knn_fused"] = {k: fused[k] for k in (
+        "dispatches", "wall_s", "device_s", "flops", "mfu", "mfu_padded", "verdict")}
+    row["knn_fused"]["critical_path_verdict"] = cp_sites["knn.fused"]["verdict"]
+    row["trace_device"] = {"device_kind": prof["device"]["device_kind"],
+                           "peak_flops": prof["device"]["peak_flops"],
+                           "peak_bandwidth": prof["device"]["peak_bandwidth"],
+                           "mfu": prof["device"]["mfu"]}
+    row["sites"] = {s: {"dispatches": v["dispatches"], "device_s": v["device_s"],
+                        "mfu": v["mfu"], "verdict": v["verdict"]}
+                    for s, v in sites.items()}
+    if fused["verdict"] not in ("host-bound", "compute-bound", "bandwidth-bound") \
+            or not fused["mfu"] > 0 or fused["verdict"] != cp_sites["knn.fused"]["verdict"]:
+        fail(f"knn.fused: mfu {fused['mfu']}, verdict {fused['verdict']}")
+    if prof["device"]["device_kind"] != torch.cuda.get_device_name(0):
+        fail(f"the trace's peaks are not the card's: {prof['device']['device_kind']}")
+
+    # -- the CLI ----------------------------------------------------------
+    outs = {}
+    for name, proc in clis.items():
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        outs[name] = (proc.returncode, out, err)
+    row["cli_rc"] = {name: rc for name, (rc, _, _) in outs.items()}
+    rc, out, err = outs["device_plan"]
+    cli_doc = json.loads(out) if rc == 0 else {}
+    row["cli_device_plan"] = {"verdict": cli_doc.get("verdict"),
+                              "budget_bytes": cli_doc.get("hbm", {}).get("budget_bytes")}
+    if rc != 0 or cli_doc["verdict"] != "device-clean" or cli_doc["hbm"]["budget_bytes"] != total:
+        fail(f"--device-plan --json: rc {rc}, {row['cli_device_plan']}\n{err[-2000:]}")
+    if outs["over_budget"][0] != 2:
+        fail(f"--device-mutant over_budget: rc {outs['over_budget'][0]}")
+    if outs["mesh"][0] != 0 or "no deadlock" not in outs["mesh"][1]:
+        fail(f"--mesh: rc {outs['mesh'][0]}\n{outs['mesh'][2][-2000:]}")
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    if "jax" in sys.modules or any(m.startswith("pathway_tpu.") for m in sys.modules):
+        fail("JAX or the JAX package was imported")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1758,8 +2049,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_spawn(ckpt, args.seed)  # the ranks search no index: no KNN launch
     per_phase.append(phase_persisted(args.seed))
-    # last: its pw.run serves (and rescans its folder) until the process ends
-    per_phase.append(phase_dataflow(fk, args.seed))
+    # last but one: its pw.run serves (and rescans its folder) until the
+    # process ends; the doctor audits that running program
+    df_launches, df_runtime = phase_dataflow(fk, args.seed)
+    per_phase.append(df_launches)
+    per_phase.append(phase_doctor(pt, fk, ckpt, args.seed, df_runtime))
     # the kernels line counts the launches of every path this run drove
     launches = {k: sum(p.get(k, 0) for p in per_phase) for k in fk.LAUNCHES}
 

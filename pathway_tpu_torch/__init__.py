@@ -159,6 +159,9 @@ from pathway_tpu_torch.ops import (  # noqa: E402
 __version__ = "0.1.0"
 
 _LAZY_ATTRS = {
+    # plan doctor (static dataflow-plan analysis)
+    "analyze": ("pathway_tpu_torch.analysis.analyzer", "analyze"),
+    "PlanReport": ("pathway_tpu_torch.analysis.analyzer", "PlanReport"),
     # join-result classes exposed at top level (reference __all__)
     "IntervalJoinResult": ("pathway_tpu_torch.stdlib.temporal", "IntervalJoinResult"),
     "AsofJoinResult": ("pathway_tpu_torch.stdlib.temporal", "AsofJoinResult"),
@@ -174,6 +177,7 @@ _LAZY_ATTRS = {
 }
 
 _LAZY_MODULES = {
+    "analysis": "pathway_tpu_torch.analysis",
     "demo": "pathway_tpu_torch.demo",
     "indexing": "pathway_tpu_torch.stdlib.indexing",
     "temporal": "pathway_tpu_torch.stdlib.temporal",

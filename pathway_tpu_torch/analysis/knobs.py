@@ -126,6 +126,28 @@ KNOBS: dict[str, Knob] = {
         _k("PATHWAY_DEVICE_PEAK_GBPS", "float", None,
            "Override the roofline ridge's peak HBM bandwidth (GB/s). "
            "Default: resolved from the device kind.", lo=0.001),
+        _k("PATHWAY_DEVICE_HOST_BOUND_SHARE", "float", 0.35,
+           "Device-busy share of a dispatch site's wall time below "
+           "which its roofline verdict reads host-bound (the device "
+           "sat idle while the host assembled batches).", lo=0.0,
+           hi=1.0),
+        # -- Device Doctor (analysis/device_plan.py) -------------
+        _k("PATHWAY_DEVICE_DOCTOR", "bool", True,
+           "Run the Device Doctor pass inside pw.analyze(device=True): "
+           "trace every registered device chain on meta tensors (no "
+           "launch, no allocation) and audit in-place index writes, "
+           "host syncs, shape buckets (CUDA graphs), the device-memory "
+           "budget and the mesh layout. 0 skips the pass."),
+        _k("PATHWAY_DEVICE_HBM_BYTES", "int", None,
+           "Override the per-card memory budget the Device Doctor's "
+           "static footprint check refuses layouts against. Default: "
+           "the card's total_memory when CUDA is available, else "
+           "8 GiB — set this on a CPU host to model a card.", lo=1),
+        _k("PATHWAY_DEVICE_PLAN_MAX_BUCKETS", "int", 64,
+           "Retrace-audit threshold: a declared workload implying more "
+           "shape buckets than this at one dispatch site gets a warning "
+           "(each bucket is a captured CUDA graph or a launch plan, and "
+           "costs capture time and graph memory).", lo=1, hi=1_000_000),
         # -- fused ingest ---------------------------------------
         _k("PATHWAY_INGEST_DEPTH", "int", 2,
            "Tokenize-ahead depth of the fused ingest chain "
@@ -411,6 +433,23 @@ KNOBS: dict[str, Knob] = {
            "only releases back to ok (sources resume) once accounted "
            "bytes drain below it — the hysteresis band that stops "
            "pause/resume flapping.", lo=0.0, hi=1.0),
+        # -- mesh verifier (analysis/meshcheck.py) ------------------------
+        _k("PATHWAY_MESHCHECK_RANKS", "int", 3,
+           "Default symbolic rank count of the mesh model checker "
+           "(python -m pathway_tpu_torch.analysis --mesh).", lo=2, hi=16),
+        _k("PATHWAY_MESHCHECK_ROUNDS", "int", 2,
+           "Wave depth of the checker: BSP ingest rounds per rank in "
+           "the bounded model.", lo=1, hi=8),
+        _k("PATHWAY_MESHCHECK_FAULTS", "int", 1,
+           "Injected-crash budget per explored interleaving (drawn from "
+           "the mesh.rank_kill phases).", lo=0, hi=4),
+        _k("PATHWAY_MESHCHECK_MAX_STATES", "int", 200_000,
+           "Exploration cap; hitting it marks the check INCOMPLETE "
+           "instead of running unbounded.", lo=1_000, hi=100_000_000),
+        _k("PATHWAY_MESHCHECK_DOCTOR", "bool", True,
+           "Run the checker against the lowered plan's exchange "
+           "topology as a Plan Doctor pass when analyzing multi-rank "
+           "plans (0 disables the distributed-safety verdicts)."),
         # -- CI / test harness --------------------------------------------
         _k("PATHWAY_LANE_PROCESSES", "int", 1,
            "Emulated-rank CI lane: every run transparently joins N "

@@ -82,6 +82,8 @@ _PEAK_TABLE: tuple[tuple[str, float, float, float, float], ...] = (
 _PEAK_FLOPS_FALLBACK = 2e11
 _PEAK_BW_FALLBACK = 50e9
 
+_HOST_BOUND_SHARE_DEFAULT = 0.35
+
 
 def _env_float(name: str) -> float | None:
     raw = os.environ.get(name, "")
@@ -148,6 +150,68 @@ def peak_bandwidth(kind: str | None = None) -> float:
         return override * 1e9
     row = _peak_row(device_kind() if kind is None else kind)
     return row[4] if row is not None else _PEAK_BW_FALLBACK
+
+
+def host_bound_share() -> float:
+    """Device-busy share of a dispatch site's wall below which the site
+    reads host-bound (PATHWAY_DEVICE_HOST_BOUND_SHARE)."""
+    v = _env_float("PATHWAY_DEVICE_HOST_BOUND_SHARE")
+    if v is None or not (0.0 <= v <= 1.0):
+        return _HOST_BOUND_SHARE_DEFAULT
+    return v
+
+
+def roofline_verdict(
+    wall_s: float,
+    device_s: float,
+    flops: float,
+    bytes_accessed: float,
+    pk_flops: float | None = None,
+    pk_bw: float | None = None,
+    host_share: float | None = None,
+) -> str:
+    """The per-site/per-node verdict of the device plane, pure so the
+    offline analyzers (analysis/profile.py, analysis/critical_path.py)
+    and the live plane compute the SAME answer:
+
+    * ``host-bound`` — the device was idle for most of the dispatch wall
+      (the host was assembling batches / expanding rows): fixing this
+      node means fixing the host path, not writing a kernel;
+    * ``compute-bound`` — arithmetic intensity (FLOPs per device-memory
+      byte) at or above the roofline ridge (peak FLOP/s over peak
+      bytes/s): the tensor cores are the limiter, a faster kernel or
+      lower precision is the lever;
+    * ``bandwidth-bound`` — intensity below the ridge: memory traffic is
+      the limiter (fuse, cache, or shrink the working set).
+    """
+    share = host_bound_share() if host_share is None else host_share
+    if wall_s > 0 and device_s < share * wall_s:
+        return "host-bound"
+    if flops <= 0:
+        # no modeled device arithmetic at all: whatever time this site
+        # took was host work by definition
+        return "host-bound"
+    if bytes_accessed <= 0:
+        return "compute-bound"
+    pf = peak_flops() if pk_flops is None else pk_flops
+    pb = peak_bandwidth() if pk_bw is None else pk_bw
+    ridge = pf / max(pb, 1.0)
+    return (
+        "compute-bound"
+        if (flops / bytes_accessed) >= ridge
+        else "bandwidth-bound"
+    )
+
+
+def mfu(flops: float, device_s: float, pk_flops: float | None = None) -> float:
+    """Model FLOPs utilization of a dispatch set: achieved FLOP/s over
+    the card's peak. Callers pick which FLOPs they feed: padded FLOPs
+    (what the hardware executed, bucket padding included) or effective
+    FLOPs (only real rows/tokens — what ``device_mfu`` reports, with the
+    padded variant kept alongside as ``device_mfu_padded``)."""
+    if device_s <= 0 or flops <= 0:
+        return 0.0
+    return (flops / device_s) / (peak_flops() if pk_flops is None else pk_flops)
 
 
 # -- device memory (absent-stat-safe) ----------------------------------------
@@ -339,6 +403,65 @@ def ingest_bucket(nb: int, Lb: int, capacity: int, ids_dtype: str) -> tuple:
     """Shape key of one fused ingest chain (batch bucket x seq bucket x
     index capacity x wire dtype)."""
     return (nb, Lb, capacity, ids_dtype)
+
+
+# -- static device-memory budget ---------------------------------------------
+# The Device Doctor's footprint check (analysis/device_plan.py) holds a
+# declared layout against one card's memory. PATHWAY_DEVICE_HBM_BYTES
+# overrides (the CPU lever: model a card on a host without one).
+_HBM_FALLBACK = 8 * 1024**3
+
+
+def device_hbm_bytes() -> int:
+    """One card's memory budget in bytes: ``PATHWAY_DEVICE_HBM_BYTES``
+    wins; with CUDA, the card's own ``total_memory``
+    (``torch.cuda.get_device_properties``; read even in a process that has
+    not touched the card yet, which allocates nothing); without CUDA a
+    deliberately small 8 GiB fallback, so the budget check still means
+    something on a host with no card."""
+    raw = os.environ.get("PATHWAY_DEVICE_HBM_BYTES", "")
+    if raw.strip():
+        try:
+            v = int(float(raw))
+            if v > 0:
+                return v
+        except ValueError:
+            pass
+    if torch.cuda.is_available():
+        try:
+            dev = torch.cuda.current_device()
+            total = int(torch.cuda.get_device_properties(dev).total_memory)
+        except RuntimeError:
+            total = 0
+        if total > 0:
+            return total
+    return _HBM_FALLBACK
+
+
+def index_shard_bytes(capacity: int, dim: int, *, donated: bool = True) -> float:
+    """Steady-state device bytes of one index shard's buffer triple: f32
+    vectors [capacity, dim] + bool valid [capacity] + f32 sq_norms
+    [capacity]. A write that is NOT in place keeps the old triple alive
+    across the launch — the doctor's in-place audit bills exactly this
+    doubling (``donated`` keeps the JAX package's name)."""
+    steady = 4.0 * capacity * dim + 1.0 * capacity + 4.0 * capacity
+    return steady if donated else 2.0 * steady
+
+
+def ingest_staging_bytes(
+    nb: int, Lb: int, ids_itemsize: int = 2, *, depth: int = 2
+) -> float:
+    """Host-to-device staging footprint of the tokenize-ahead ingest
+    loop: ``depth`` in-flight batches of (ids [nb, Lb] at the wire
+    itemsize + i32 lengths [nb])."""
+    per = float(nb) * float(Lb) * float(ids_itemsize) + 4.0 * nb
+    return float(depth) * per
+
+
+def snapshot_staging_bytes(capacity: int, dim: int) -> float:
+    """Worst-case staging of an index snapshot cut: one copy of the
+    buffer triple in flight to the host."""
+    return 4.0 * capacity * dim + 1.0 * capacity + 4.0 * capacity
 
 
 # -- the plane ---------------------------------------------------------------

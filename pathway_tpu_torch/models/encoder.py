@@ -22,6 +22,7 @@ package leaves them to XLA, not to a hand kernel.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import math
 import threading
 from typing import Any, Sequence
@@ -372,9 +373,21 @@ class SentenceEncoder:
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._graph_pool,
-                              capture_error_mode="thread_local"):
-            out = self.model(ids_in, mask_in)
+        # a dead reference cycle may hold another encoder's graphs; the
+        # cyclic collector must not free them inside this capture (a graph
+        # destroyed there is an operation the capture forbids, and the
+        # capture fails), so it is held off until the capture ends. (A
+        # collection here instead would cost a walk of the whole heap,
+        # which an engine holding a large corpus pays at every capture.)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._graph_pool,
+                                  capture_error_mode="thread_local"):
+                out = self.model(ids_in, mask_in)
+        finally:
+            if collecting:
+                gc.enable()
         return graph, ids_in, mask_in, out
 
     def encode(self, texts: Sequence[str]) -> np.ndarray:

@@ -32,7 +32,11 @@ import functools
 
 import torch
 
-from pathway_tpu_torch.internals.device import PLANE as _DEVICE, fused_knn_bucket
+from pathway_tpu_torch.internals.device import (
+    PLANE as _DEVICE,
+    device_site,
+    fused_knn_bucket,
+)
 from pathway_tpu_torch.ops import _build
 from pathway_tpu_torch.ops.topk import chunked_topk_scores
 
@@ -72,6 +76,15 @@ def fused_knn_cost(
     )
     return flops, bytes_accessed
 
+
+device_site(
+    "knn.fused",
+    cost_model=fused_knn_cost,
+    dtypes=("float32", "bool", "int32"),
+    where="pathway_tpu_torch/ops/fused_knn.py:fused_topk_scores",
+    description="hand-written fused matmul + running top-k (partial pass "
+                "and merge) over the padded vector store",
+)
 
 _LIB: ctypes.CDLL | None = None
 
@@ -256,8 +269,9 @@ def knn_partial(queries, database, valid, k, rows, *, sq_norms=None,
 def topk_merge(part_v, part_i, k):
     """Merge pass: the k best per query of ``[splits, Q, k']`` partials,
     taken in split order. A CUDA tensor launches the kernel; a CPU tensor
-    runs the plain version."""
-    if part_v.device.type == "cpu":
+    runs the plain version, and so does a meta tensor (no data: the Device
+    Doctor's shape-only trace of the sharded search)."""
+    if part_v.device.type in ("cpu", "meta"):
         return topk_merge_plain(part_v, part_i, k)
     dev = part_v.device
     if dev.type != "cuda":
@@ -308,19 +322,34 @@ def fused_topk_scores(
         raise ValueError(f"unknown metric {metric!r}")
     if metric == "l2sq" and sq_norms is None:
         raise ValueError("metric='l2sq' needs sq_norms")
-    _DEVICE.note_bucket(_SEEN_BUCKETS, "knn.fused", fused_knn_bucket(
-        queries.shape[0], database.shape[0], queries.shape[1], k))
-    if queries.device.type == "cpu":
-        return chunked_topk_scores(
-            queries, database, valid, k, sq_norms=sq_norms, metric=metric
-        )
-    if queries.device.type != "cuda":
+    q, cap, d = queries.shape[0], database.shape[0], queries.shape[1]
+    _DEVICE.note_bucket(_SEEN_BUCKETS, "knn.fused", fused_knn_bucket(q, cap, d, k))
+    if queries.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {queries.device}")
-    n_sm = torch.cuda.get_device_properties(queries.device).multi_processor_count
-    rows, splits = plan_splits(queries.shape[0], database.shape[0], k, n_sm)
-    part_v, part_i = knn_partial(
-        queries, database, valid, k, rows, sq_norms=sq_norms, metric=metric
-    )
-    if splits == 1:  # one split's list is already the answer
-        return part_v[0], part_i[0]
-    return topk_merge(part_v, part_i, k)
+    # one timed dispatch record per launch pair (one attribute check when
+    # the device plane is off)
+    dev = _DEVICE.begin("knn.fused", queries.device) if _DEVICE.on else None
+    try:
+        if queries.device.type == "cpu":
+            out = chunked_topk_scores(
+                queries, database, valid, k, sq_norms=sq_norms, metric=metric
+            )
+        else:
+            n_sm = torch.cuda.get_device_properties(
+                queries.device).multi_processor_count
+            rows, splits = plan_splits(q, cap, k, n_sm)
+            part_v, part_i = knn_partial(
+                queries, database, valid, k, rows, sq_norms=sq_norms,
+                metric=metric,
+            )
+            # one split's list is already the answer
+            out = ((part_v[0], part_i[0]) if splits == 1
+                   else topk_merge(part_v, part_i, k))
+    except BaseException:
+        _DEVICE.end(dev, None, block=False)
+        raise
+    if dev is not None:
+        flops, acc = fused_knn_cost(q, cap, d, k, _TN)
+        _DEVICE.end(dev, out[0], flops=flops, bytes_accessed=acc,
+                    transfer_bytes=0)
+    return out

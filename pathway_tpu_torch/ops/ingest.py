@@ -63,6 +63,24 @@ device_site(
 )
 
 
+def fused_chain(forward, wire, compact: bool, n: int, write) -> torch.Tensor:
+    """The ``ingest.fused`` chain on the device: the wire batch expanded
+    to (ids, mask), ``forward`` (the encoder's), then ``write`` of the
+    first ``n`` embeddings, the index's in-place slot write
+    (``KnnShard._write_slots``, i.e. ``ops/knn.py write_slots``). Returns
+    those embeddings. Module-level so the Device Doctor
+    (analysis/device_plan.py) traces the same function ``IngestPipeline``
+    launches, as the JAX package's doctor lowers its ``make_fused``."""
+    if compact:
+        ids, mask = expand_compact(*wire)
+    else:
+        ids, mask = wire[0].to(torch.int64), wire[1]
+    emb = forward(ids, mask)[:n]
+    # the encoder's rows are already unit-norm: store them as they are
+    write(emb)
+    return emb
+
+
 def _env_int(name: str, default: int) -> int:
     try:
         v = int(os.environ.get(name, "") or default)
@@ -169,11 +187,7 @@ class IngestPipeline:
             for t in wire:  # allocated on the copy stream, used on this one
                 t.record_stream(stream)
         wire = tuple(t.to(self.device) for t in wire)
-        if compact:
-            ids, mask = expand_compact(*wire)
-        else:
-            ids, mask = wire[0].to(torch.int64), wire[1]
-        nb, Lb = ids.shape
+        nb, Lb = wire[0].shape
         self.rows_ingested += n
         self.real_tokens += eff_tokens
         self.padded_tokens += nb * Lb
@@ -182,16 +196,20 @@ class IngestPipeline:
         try:
             with index.lock:
                 slots = index._assign_slots(keys)
+                # the wire carries uint16 ids (in int16 bits: torch has
+                # no uint16 arithmetic), the JAX package's bucket label
                 bucket = ingest_bucket(
-                    nb, Lb, index.capacity, "int16" if compact else "int32")
+                    nb, Lb, index.capacity, "uint16" if compact else "int32")
+
+                def forward(ids, mask):
+                    return self.encoder.forward(
+                        ids, mask, site=self.site, bucket=bucket)
 
                 def chain() -> torch.Tensor:
-                    out = self.encoder.forward(
-                        ids, mask, site=self.site, bucket=bucket)[:n]
-                    # the encoder's rows are already unit-norm: store them
-                    # as they are
-                    index._write_slots(slots, out, True)
-                    return out
+                    return fused_chain(
+                        forward, wire, compact, n,
+                        lambda emb: index._write_slots(slots, emb, True),
+                    )
 
                 # injected faults raise before the launch, so a retry
                 # writes the same slots again (an upsert)

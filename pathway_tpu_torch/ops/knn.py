@@ -85,6 +85,42 @@ def _normalize(v: torch.Tensor) -> torch.Tensor:
     return v / torch.clamp(n, min=1e-30)
 
 
+def write_slots(vectors: torch.Tensor, valid: torch.Tensor,
+                sq_norms: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
+                flag: bool, *, normalize: bool = False) -> None:
+    """The ``knn.write`` chain: rows, validity and squared norms written
+    into the buffer triple in place (``index_copy_`` / ``index_put_`` on
+    the buffers themselves, never a copy of them). Module-level so the
+    Device Doctor (analysis/device_plan.py) traces the same function
+    ``KnnShard`` launches, as the JAX package's doctor lowers its
+    ``_write_slots``."""
+    rows = rows.to(torch.float32)
+    if normalize:
+        rows = _normalize(rows)
+    vectors.index_copy_(0, idx, rows)
+    valid[idx] = flag
+    sq_norms.index_copy_(0, idx, torch.sum(rows * rows, dim=-1))
+
+
+def search_topk(queries: torch.Tensor, vectors: torch.Tensor,
+                valid: torch.Tensor, sq_norms: torch.Tensor, k_eff: int,
+                metric: str):
+    """The ``knn.search`` chain: (values, slots) of the ``k_eff`` best
+    rows per query, on the buffers' device — the fused KNN kernel pair
+    on CUDA (any k_eff of ``knn_search_bucket``, 1..8192), the plain
+    chunked scan elsewhere. ``metric`` is "dot" or "l2sq". Module-level
+    for the Device Doctor, which traces the plain scan on meta tensors
+    (a kernel bound through ctypes does not trace)."""
+    sq = sq_norms if metric == "l2sq" else None
+    if vectors.device.type == "cuda":
+        return fused_topk_scores(
+            queries, vectors, valid, k_eff, sq_norms=sq, metric=metric
+        )
+    return chunked_topk_scores(
+        queries, vectors, valid, k_eff, sq_norms=sq, metric=metric
+    )
+
+
 class KnnShard:
     """One device shard of a brute-force index: add/remove/search.
 
@@ -232,13 +268,11 @@ class KnnShard:
                      *, normalize: bool = False) -> None:
         """In-place slot write of rows, validity and squared norms. Caller
         holds ``self.lock``."""
-        idx = torch.from_numpy(slots).to(self.device)
-        rows = rows.to(torch.float32)
-        if normalize:
-            rows = _normalize(rows)
-        self.vectors.index_copy_(0, idx, rows)
-        self.valid[idx] = valid
-        self.sq_norms.index_copy_(0, idx, torch.sum(rows * rows, dim=-1))
+        write_slots(
+            self.vectors, self.valid, self.sq_norms,
+            torch.from_numpy(slots).to(self.device), rows, valid,
+            normalize=normalize,
+        )
 
     def add(self, keys: Sequence[Any], vecs) -> None:
         """Upsert vectors; accepts numpy or tensors (a device tensor avoids
@@ -357,14 +391,8 @@ class KnnShard:
         the fused kernel on CUDA (any k_eff of ``knn_search_bucket``,
         1..8192), the plain chunked scan on the CPU. ``metric`` is "dot" or "l2sq". Caller holds
         ``self.lock``."""
-        sq = self.sq_norms if metric == "l2sq" else None
-        if self.device.type == "cuda":
-            return fused_topk_scores(
-                queries, self.vectors, self.valid, k_eff, sq_norms=sq,
-                metric=metric,
-            )
-        return chunked_topk_scores(
-            queries, self.vectors, self.valid, k_eff, sq_norms=sq, metric=metric
+        return search_topk(
+            queries, self.vectors, self.valid, self.sq_norms, k_eff, metric
         )
 
     def search(self, queries, k: int) -> list[list[tuple[Any, float]]]:

@@ -185,6 +185,39 @@ def sharded_topk(
     return to_device_after(v, queries.device), to_device_after(i, queries.device)
 
 
+def sharded_write_slots(
+    vectors: Sequence[torch.Tensor],
+    valids: Sequence[torch.Tensor],
+    sq_norms: Sequence[torch.Tensor],
+    local_cap: int,
+    slots: np.ndarray,
+    rows: torch.Tensor,
+    flag: bool,
+    *,
+    normalize: bool = False,
+) -> None:
+    """The ``knn.sharded_write`` chain: global ``slots`` (shard * local_cap
+    + local slot) written in place into each owning shard's buffer triple,
+    one ``index_copy_`` per shard on the shard's device. The rows are
+    normalized and their norms taken over the whole batch, as
+    ``KnnShard`` does, so both indexes store the same bits. Module-level
+    so the Device Doctor (analysis/device_plan.py) traces the same
+    function ``ShardedKnnIndex`` launches."""
+    rows = rows.to(torch.float32)
+    if normalize:
+        rows = _normalize(rows)
+    sq = torch.sum(rows * rows, dim=-1)
+    owner, local = np.divmod(slots, local_cap)
+    for s in np.unique(owner):
+        sel = np.flatnonzero(owner == s)
+        dev = vectors[s].device
+        pos = torch.from_numpy(sel).to(rows.device)
+        idx = torch.from_numpy(local[sel]).to(dev)
+        vectors[s].index_copy_(0, idx, to_device_after(rows[pos], dev))
+        valids[s][idx] = flag
+        sq_norms[s].index_copy_(0, idx, to_device_after(sq[pos], dev))
+
+
 class ShardedKnnIndex:
     """Host-facing sharded index: the contract of ``ops.KnnShard``, but
     the vector store is laid out over a mesh axis, one shard per device.
@@ -391,22 +424,12 @@ class ShardedKnnIndex:
     def _write_slots(self, slots: np.ndarray, rows: torch.Tensor, valid: bool,
                      *, normalize: bool = False) -> None:
         """In-place write of rows, validity and squared norms, one
-        ``index_copy_`` per owning shard. The rows are normalized and
-        their norms taken over the whole batch, as ``KnnShard`` does, so
-        both indexes store the same bits. Caller holds ``self.lock``."""
-        rows = rows.to(torch.float32)
-        if normalize:
-            rows = _normalize(rows)
-        sq = torch.sum(rows * rows, dim=-1)
-        owner, local = np.divmod(slots, self.local_cap)
-        for s in np.unique(owner):
-            sel = np.flatnonzero(owner == s)
-            dev = self.devices[s]
-            pos = torch.from_numpy(sel).to(rows.device)
-            idx = torch.from_numpy(local[sel]).to(dev)
-            self.vectors[s].index_copy_(0, idx, to_device_after(rows[pos], dev))
-            self.valid[s][idx] = valid
-            self.sq_norms[s].index_copy_(0, idx, to_device_after(sq[pos], dev))
+        ``index_copy_`` per owning shard (``sharded_write_slots``). Caller
+        holds ``self.lock``."""
+        sharded_write_slots(
+            self.vectors, self.valid, self.sq_norms, self.local_cap, slots,
+            rows, valid, normalize=normalize,
+        )
 
     def add(self, keys: Sequence[Any], vecs) -> None:
         """Upsert a batch: one in-place write per owning shard. Accepts

@@ -490,3 +490,122 @@ def test_recompiles_equal_the_captured_graphs(gen):
     assert all(g is not None for g in enc._graphs.values())
     assert graphs["encoder.forward"] >= 3 and graphs["ingest.fused"] == 2
     assert {s: stats.device_recompiles[s] for s in graphs} == graphs
+
+
+# -- the Device Doctor on the card -------------------------------------------
+
+
+def test_device_hbm_bytes_reads_the_card_in_a_fresh_process(gen, tmp_path):
+    """In a process that has not touched the card, the doctor's budget is
+    the card's own memory, not the 8 GiB fallback of a host without one."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PATHWAY_DEVICE_HBM_BYTES"}
+    env["PYTHONPATH"] = repo
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import torch\n"
+         "from pathway_tpu_torch.internals.device import device_hbm_bytes\n"
+         "b = device_hbm_bytes()\n"
+         "print(b, torch.cuda.get_device_properties(0).total_memory,"
+         " torch.cuda.memory_allocated())"],
+        env=env, cwd=tmp_path, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    budget, total, allocated = map(int, out.stdout.split())
+    assert budget == total != 8 * 1024**3
+    assert allocated == 0
+
+
+def test_device_plan_on_the_card_launches_and_allocates_nothing(gen):
+    from pathway_tpu_torch.analysis.device_plan import (
+        WorkloadSpec,
+        analyze_device_plan,
+    )
+    from pathway_tpu_torch.models import EncoderConfig
+
+    import gc
+
+    gc.collect()  # garbage of earlier tests is not the doctor's to free
+    torch.cuda.synchronize()
+    before = (dict(fused_knn.LAUNCHES), torch.cuda.memory_allocated(),
+              torch.cuda.memory_stats()["allocated_bytes.all.allocated"])
+    report = analyze_device_plan(
+        workload=WorkloadSpec(corpus_rows=1 << 20, initial_capacity=1 << 20,
+                              query_batches=(1, 32, 256),
+                              ingest_batches=((256, 150),) * 4),
+        config=EncoderConfig.bge_small(),
+    )
+    torch.cuda.synchronize()
+    assert (dict(fused_knn.LAUNCHES), torch.cuda.memory_allocated(),
+            torch.cuda.memory_stats()["allocated_bytes.all.allocated"]) == before
+    assert report.verdict == "device-clean", report.render()
+    assert report.hbm["budget_bytes"] == torch.cuda.get_device_properties(0).total_memory
+
+
+def test_predicted_recompiles_equal_the_captured_graphs(gen):
+    """The doctor's predictions at ``encoder.forward`` and ``ingest.fused``
+    for the declared batches are exactly the CUDA graphs a fresh encoder
+    captures when those batches are encoded and ingested."""
+    from pathway_tpu_torch.analysis.device_plan import (
+        WorkloadSpec,
+        analyze_device_plan,
+        join_profile,
+    )
+    from pathway_tpu_torch.internals import device as devplane
+    from pathway_tpu_torch.internals.monitoring import ProberStats
+
+    enc, shard, pipe = _small_pipeline()
+    texts = ["short text", "a much longer text about many things " * 8]
+    batches = [texts[:1], texts, texts * 9, texts]
+    declared = tuple((len(b), enc.tokenizer(b)[0].shape[1]) for b in batches)
+    report = analyze_device_plan(
+        workload=WorkloadSpec(ingest_batches=declared, batch_cap=enc.batch_size,
+                              initial_capacity=shard.capacity),
+        config=enc.config,
+    )
+    stats = ProberStats()
+    devplane.PLANE.arm(None, stats)
+    try:
+        for i, b in enumerate(batches):
+            enc.encode(b)
+            pipe.ingest([f"k{i}-{j}" for j in range(len(b))], b)
+    finally:
+        devplane.PLANE.disarm()
+    graphs = {}
+    for site, _ in enc._graphs:
+        graphs[site] = graphs.get(site, 0) + 1
+    for site in ("encoder.forward", "ingest.fused"):
+        assert graphs[site] == report.predictions[site]["recompiles"], site
+        assert {b for s, b in enc._graphs if s == site} == report.predictions[site]["buckets"]
+    joined = join_profile(report, {"device_recompiles": dict(stats.device_recompiles)})
+    assert joined.verdict == "device-clean"
+
+
+def test_capture_survives_a_dead_encoder_in_a_cycle(gen):
+    """An encoder that only the cyclic collector can free (its graphs
+    included) must not be collected inside another encoder's capture,
+    where destroying a graph is forbidden and would fail the capture: the
+    collector is held off during a capture."""
+    import gc
+
+    import numpy as np
+
+    from pathway_tpu_torch.models import EncoderConfig, SentenceEncoder
+
+    dead = SentenceEncoder(EncoderConfig(**_SMALL), batch_size=8)
+    dead.encode(["one text"])
+    assert dead._graphs
+    dead.cycle = dead
+    del dead
+    live = SentenceEncoder(EncoderConfig(**_SMALL), batch_size=8)
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)  # a collection at almost every allocation
+    try:
+        emb = live.encode(["another text, another shape bucket " * 4])
+    finally:
+        gc.set_threshold(*threshold)
+    assert np.isfinite(emb).all() and live._graphs

@@ -57,6 +57,48 @@ def test_modules_of_the_launcher_and_the_loader_load_no_jax(module):
     assert "BAD []" in out.stdout, out.stdout
 
 
+@pytest.mark.parametrize("module", [
+    "pathway_tpu_torch.analysis",
+    "pathway_tpu_torch.analysis.analyzer",
+    "pathway_tpu_torch.analysis.__main__",
+    "pathway_tpu_torch.analysis.bench",
+    "pathway_tpu_torch.analysis.critical_path",
+    "pathway_tpu_torch.analysis.meshcheck",
+    "pathway_tpu_torch.analysis.profile",
+    "pathway_tpu_torch.analysis.device_plan",
+])
+def test_modules_of_the_plan_doctor_load_no_jax(module):
+    out = _run(
+        f"import sys, importlib; importlib.import_module({module!r})\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'pathway_tpu')\n"
+        "       or m.startswith(('jax.', 'flax.', 'pathway_tpu.'))]\n"
+        "print('BAD', bad)"
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_doctors_run_without_jax():
+    """``pw.analyze`` with the Device Doctor and the CLI's device plan and
+    mesh modes run through without loading JAX or the JAX package."""
+    out = _run(
+        "import sys\n"
+        "import pathway_tpu_torch as pw\n"
+        "from pathway_tpu_torch.analysis.__main__ import main\n"
+        "t = pw.debug.table_from_rows(pw.schema_from_types(x=int), [(1,)])\n"
+        "print('VERDICT', pw.analyze(t, device=True).device['verdict'])\n"
+        "print('RC', main(['--device-plan']), main(['--mesh', '--processes', '2',"
+        " '--mesh-rounds', '1']))\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'pathway_tpu')\n"
+        "       or m.startswith(('jax.', 'flax.', 'pathway_tpu.'))]\n"
+        "print('BAD', bad)",
+        timeout=240,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "VERDICT device-clean" in out.stdout and "RC 0 0" in out.stdout
+    assert "BAD []" in out.stdout, out.stdout
+
+
 def test_python_m_pathway_tpu_torch_is_the_cli():
     out = _run(["-m", "pathway_tpu_torch", "--help"])
     assert out.returncode == 0, out.stderr
@@ -203,9 +245,9 @@ def test_native_build_dir_override_keeps_the_packages_apart(tmp_path):
     assert "a | 3" in second.stdout and "b | 3" in second.stdout, second.stdout
 
 
-# names of ``pathway_tpu`` that come with a later slice of the port: the
-# plan doctor (``analysis`` beyond ``eligibility``/``knobs``)
-DEFERRED = {"analysis", "analyze", "PlanReport"}
+# names of ``pathway_tpu`` that come with a later slice of the port: none
+# is left
+DEFERRED: set = set()
 
 
 def test_pw_namespace_matches_the_jax_package():
