@@ -63,7 +63,26 @@ Phases (each prints one JSON line; any failure exits non-zero):
             into a four-shard ``ShardedKnnIndex`` must answer 256 queries
             (k = 10) bit-identically; bytes and seconds of each cut and
             restore, peak device memory;
-8. spawn    ``python -m pathway_tpu_torch spawn -n 2`` of a program the
+8. ring     ``ring_attention`` over eight shards of the one card
+            (``make_mesh(devices=[cuda:0] * 8, axes=("sp",))``) against
+            ``reference_attention``: the reference test's geometry in f32,
+            full and causal, at 2e-5 with TF32 off; one position per shard
+            (no NaN); bge-small's heads (h = 12, d = 32) at S = 8192 in
+            bf16, causal, at 5e-2: ms (CUDA events) and peak device bytes
+            above the inputs of both, the ring's peak below full
+            attention's;
+9. train    InfoNCE fine-tuning of bge-small (full width and depth) from
+            the main phase's checkpoint, through ``create_train_state``
+            and ``make_sharded_train_step``: 64 (query, passage) pairs
+            (queries padded to 32 tokens, passages to 128, bf16
+            activations), ten steps at dp = 1 whose loss must fall (median
+            step ms over steps 3-10, pairs/s, tokens/s, MFU against the
+            bf16 peak, peak device memory); one step at dp = 2 on the same
+            card whose loss must equal the first step's within 1e-2; an
+            f32 step of 8 pairs x 32 tokens whose loss (rtol 1e-4) and
+            every gradient (1e-4 of each tensor's largest) must equal the
+            port's own step on the CPU;
+10. spawn   ``python -m pathway_tpu_torch spawn -n 2`` of a program the
             phase writes, then the same program under ``spawn -n 1``: each
             rank calls ``initialize_from_env()`` (gloo: the ranks share
             the one card), reads 4,096 seeded documents as files
@@ -76,7 +95,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
             embeddings within cosine 0.999, an all-reduced 4,096, and
             ``encoder.forward`` on the card in every rank; seconds, docs/s
             and peak device memory of each rank;
-9. persisted the dataflow template streaming under
+11. persisted the dataflow template streaming under
             ``persistence_config=Config(Backend.filesystem(dir),
             persistence_mode="OPERATOR_PERSISTING")`` in a subprocess over
             4,096 documents until ``/v1/statistics`` counts them all and
@@ -88,7 +107,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
             over its indexes (a miss reports why: ``miss_detail``); the
             restart's time to its first answer and the first run's ingest
             time;
-10. doctor  the plan doctor and the Device Doctor on the card:
+12. doctor  the plan doctor and the Device Doctor on the card:
             ``pw.analyze(device=True)`` of the dataflow phase's own program
             must equal ``analyze_scope`` of its running engine, whose
             fallback counters ``audit_runtime`` holds against it;
@@ -107,11 +126,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
             pathway_tpu_torch.analysis --device-plan --json`` exits 0 with
             the card's budget, ``--device-mutant over_budget`` exits 2 and
             a ``--mesh`` check exits 0;
-11. report  the ``kernels`` JSON line (launches summed over every phase),
+13. report  the ``kernels`` JSON line (launches summed over every phase),
             then the device line.
 
 The phases run in the order build, kernels, main, supervised, sharded,
-snapshot, spawn, persisted, dataflow, doctor.
+snapshot, ring, train, spawn, persisted, dataflow, doctor.
 
 It needs one CUDA card and the rest of the repository beside it; without
 either it exits non-zero and prints no result.
@@ -170,6 +189,20 @@ CKPT_SEED = 1000
 # the supervised phase
 SV_DOCS = 1024
 SV_TIMEOUT_S = 120
+# the ring phase: eight shards on the one card; bge-small's head geometry
+# (12 heads of 32) at long context
+RING_SHARDS = 8
+RING_HEADS = 12
+RING_HEAD_DIM = 32
+RING_SEQ = 8192
+RING_REPS = 5
+# the train phase: 64 (query, passage) pairs, queries padded to 32 tokens
+# and passages to 128; the f32 gradient check on 8 pairs of 32 tokens
+TR_PAIRS = 64
+TR_QUERY_LEN = 32
+TR_PASSAGE_LEN = 128
+TR_STEPS = 10
+TR_CHECK_PAIRS = 8
 # the spawn phase
 SP_DOCS = 4096
 SP_TOPICS = 16
@@ -1473,6 +1506,209 @@ def phase_snapshot(pt, fk, single, seed: int):
     return row["launches"]
 
 
+def close(got, want, tol: float) -> bool:
+    """``numpy.allclose`` with rtol = atol = ``tol``, on tensors."""
+    import torch
+
+    return bool(torch.isclose(got.float(), want.float(), rtol=tol, atol=tol).all())
+
+
+def phase_ring(fk, seed: int, device: str = "cuda:0"):
+    """Ring attention over eight shards of the one card against full
+    attention: the reference test's geometry in f32 (full, causal), one
+    position per shard, and bge-small's heads at S = 8192 in bf16."""
+    import torch
+
+    from pathway_tpu_torch.parallel import make_mesh
+    from pathway_tpu_torch.parallel.ring_attention import reference_attention, ring_attention
+
+    # the f32 checks hold at 2e-5 only with IEEE f32 products
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("TF32 is on in the ring phase")
+    zero_launches(fk)
+    mesh = make_mesh(devices=[device] * RING_SHARDS, axes=("sp",))
+    gen = torch.Generator(device=device).manual_seed(seed + 23)
+
+    def qkv(b, h, s, d, dtype):
+        return [torch.randn((b, h, s, d), generator=gen, device=device).to(dtype)
+                for _ in range(3)]
+
+    row = {"phase": "ring", "mesh": repr(mesh)}
+    for causal in (False, True):
+        q, k, v = qkv(2, 4, 64, 16, torch.float32)
+        out = ring_attention(q, k, v, mesh, causal=causal)
+        ref = reference_attention(q, k, v, causal=causal)
+        row[f"f32_{'causal' if causal else 'full'}_max_abs_err"] = float((out - ref).abs().max())
+        if out.shape != q.shape or not close(out, ref, 2e-5):
+            fail(f"ring attention (f32, causal={causal}) differs from full attention: {row}")
+    q, k, v = qkv(1, 1, RING_SHARDS, 4, torch.float32)  # one position per shard
+    out = ring_attention(q, k, v, mesh, causal=True)
+    if torch.isnan(out).any() or not close(out, reference_attention(q, k, v, causal=True), 2e-5):
+        fail("ring attention with one position per shard: NaN or a difference")
+
+    q, k, v = qkv(1, RING_HEADS, RING_SEQ, RING_HEAD_DIM, torch.bfloat16)
+    row["long"] = {"b": 1, "h": RING_HEADS, "S": RING_SEQ, "d": RING_HEAD_DIM,
+                   "dtype": "bf16", "causal": True}
+    outs = {}
+    for name, fn in (("ring", lambda: ring_attention(q, k, v, mesh, causal=True)),
+                     ("reference", lambda: reference_attention(q, k, v, causal=True))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        outs[name] = fn()
+        torch.cuda.synchronize()
+        row["long"][f"{name}_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        row["long"][f"{name}_ms"] = cuda_ms(fn, reps=RING_REPS)
+        # every kernel's device time in one call: the rest is the card idle
+        row["long"][f"{name}_device_ms"] = profiled_ms(fn, "")
+    ring_out, ref_out = outs["ring"], outs["reference"]
+    row["long"]["max_abs_err"] = float((ring_out.float() - ref_out.float()).abs().max())
+    row["launches"] = dict(fk.LAUNCHES)
+    emit(row)
+    if torch.isnan(ring_out).any() or not close(ring_out, ref_out, 5e-2):
+        fail(f"ring attention at S = {RING_SEQ} (bf16) differs from full attention")
+    if row["long"]["ring_peak_bytes"] >= row["long"]["reference_peak_bytes"]:
+        fail(f"the ring's peak memory is not below full attention's: {row['long']}")
+    return row["launches"]
+
+
+# the key bias shifts every score of a softmax row by the same amount: its
+# gradient is 0, and what is computed for it is rounding
+ANALYTIC_ZERO = ".attention.key.bias"
+
+
+def grad_mismatches(got: dict, want: dict, rel: float) -> list[str]:
+    """The parameters whose gradient in ``got`` differs from ``want`` by
+    more than ``rel`` of the tensor's largest |g|; a gradient that is 0
+    analytically must be within 1e-6 of the model's largest |g| in both."""
+    if got.keys() != want.keys():
+        return sorted(got.keys() ^ want.keys())
+    top = max(float(w.abs().max()) for w in want.values())
+    bad = []
+    for name, w in want.items():
+        g = got[name].to(w.device)
+        if g.shape != w.shape:
+            bad.append(name)
+        elif name.endswith(ANALYTIC_ZERO):
+            if max(float(g.abs().max()), float(w.abs().max())) > 1e-6 * top:
+                bad.append(name)
+        elif float((g - w).abs().max()) > rel * float(w.abs().max()):
+            bad.append(name)
+    return bad
+
+
+def pad_to(ids, mask, L: int):
+    out_ids = np.zeros((len(ids), L), np.int32)
+    out_mask = np.zeros((len(ids), L), np.int32)
+    out_ids[:, :ids.shape[1]] = ids
+    out_mask[:, :mask.shape[1]] = mask
+    return out_ids, out_mask
+
+
+def phase_train(pt, fk, ckpt: str, written: dict, seed: int, device: str = "cuda:0"):
+    """InfoNCE fine-tuning of bge-small from the main phase's checkpoint:
+    ten steps at dp = 1, one at dp = 2 on the same card, and an f32 step
+    whose gradients must equal the port's own CPU step."""
+    import dataclasses
+
+    import torch
+
+    from pathway_tpu_torch.internals.device import peak_rates
+    from pathway_tpu_torch.models import load_bert_encoder
+    from pathway_tpu_torch.models.encoder import forward_flops_per_token
+    from pathway_tpu_torch.parallel import create_train_state, make_mesh, make_sharded_train_step
+
+    zero_launches(fk)
+    cfg, sd, tok = load_bert_encoder(ckpt)
+    differ = [n for n, t in written.items() if not torch.equal(sd[n], t)]
+    if cfg != pt.EncoderConfig.bge_small() or differ or sd.keys() != written.keys():
+        fail(f"the train phase's checkpoint did not load bit for bit: {differ[:3]}")
+    rng = np.random.default_rng(seed + 29)
+    passages = make_docs(vocab_words(), rng, TR_PAIRS)
+    queries = [" ".join(p.split()[:int(rng.integers(4, 13))]) for p in passages]
+    q_ids, q_mask = pad_to(*tok(queries, max_length=TR_QUERY_LEN), TR_QUERY_LEN)
+    d_ids, d_mask = pad_to(*tok(passages, max_length=TR_PASSAGE_LEN), TR_PASSAGE_LEN)
+    batch = {"q_ids": q_ids, "q_mask": q_mask, "d_ids": d_ids, "d_mask": d_mask}
+
+    def fresh(mesh, config):
+        state, model, tx = create_train_state(config, mesh)
+        model.load_state_dict(sd)
+        return state, model, make_sharded_train_step(model, tx, mesh)
+
+    # (a) ten steps at dp = 1
+    mesh = make_mesh(devices=[device], axes=("dp", "tp"), shape=(1, 1))
+    state, model, step = fresh(mesh, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(TR_STEPS + 1)]
+    losses = []
+    t0 = time.perf_counter()
+    marks[0].record()
+    for i in range(TR_STEPS):
+        state, loss = step(state, batch)
+        losses.append(loss)
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    step_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(TR_STEPS)]
+    losses = torch.stack(losses).tolist()
+    med_ms = float(np.median(step_ms[2:]))  # steps 3-10
+    tokens = TR_PAIRS * (TR_QUERY_LEN + TR_PASSAGE_LEN)
+    flops = 3 * TR_PAIRS * (
+        forward_flops_per_token(cfg, TR_QUERY_LEN) * TR_QUERY_LEN
+        + forward_flops_per_token(cfg, TR_PASSAGE_LEN) * TR_PASSAGE_LEN)
+    peak_bf16 = peak_rates(torch.cuda.get_device_name(0))["bf16"]
+    row = {
+        "phase": "train", "model": "bge-small", "pairs": TR_PAIRS,
+        "query_len": TR_QUERY_LEN, "passage_len": TR_PASSAGE_LEN, "dtype": "bf16",
+        "steps": state.step, "losses": losses, "step_ms": step_ms,
+        "median_step_ms": med_ms, "wall_s": wall_s,
+        "pairs_per_s": TR_PAIRS / (med_ms / 1e3), "tokens_per_s": tokens / (med_ms / 1e3),
+        "flops_per_step": flops, "mfu_bf16": flops / (med_ms / 1e3) / peak_bf16,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+    }
+    if state.step != TR_STEPS or not np.all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        emit(row)
+        fail(f"training did not descend in {TR_STEPS} steps: {losses}, step {state.step}")
+    # every kernel's device time in one step: the rest is the card idle
+    row["step_device_ms"] = profiled_ms(lambda: step(state, batch), "")
+    row["device_busy_share"] = row["step_device_ms"] / med_ms
+    del state, model, step
+
+    # (b) one step at dp = 2 on the same card, from the same weights
+    mesh2 = make_mesh(devices=[device] * 2, axes=("dp", "tp"), shape=(2, 1))
+    state, model, step = fresh(mesh2, cfg)
+    state, loss = step(state, batch)
+    row["dp2_loss"] = float(loss)
+    del state, model, step
+
+    # (c) the f32 gradients on the card against the port's CPU step
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    small = {k: v[:TR_CHECK_PAIRS, :TR_QUERY_LEN] for k, v in batch.items()}
+    out = {}
+    for dev in (device, "cpu"):
+        m = make_mesh(devices=[dev], axes=("dp", "tp"), shape=(1, 1))
+        state, model, step = fresh(m, cfg32)
+        state, loss = step(state, small)
+        out[dev] = (float(loss), {n: p.grad for n, p in model.named_parameters()})
+        del state, model, step
+    (card_loss, card_g), (cpu_loss, cpu_g) = out[device], out["cpu"]
+    bad = grad_mismatches(card_g, cpu_g, 1e-4)
+    row["f32_check"] = {"pairs": TR_CHECK_PAIRS, "tokens": TR_QUERY_LEN,
+                        "card_loss": card_loss, "cpu_loss": cpu_loss,
+                        "tensors": len(cpu_g), "mismatched": bad}
+    row["launches"] = dict(fk.LAUNCHES)
+    del out, card_g, cpu_g
+    torch.cuda.empty_cache()
+    emit(row)
+    if abs(row["dp2_loss"] - losses[0]) > 1e-2:
+        fail(f"the dp = 2 step's loss {row['dp2_loss']} differs from dp = 1's {losses[0]}")
+    if abs(card_loss - cpu_loss) > 1e-4 * abs(cpu_loss) or bad:
+        fail(f"the card's f32 step differs from the CPU's: loss {card_loss} vs "
+             f"{cpu_loss}, gradients {bad[:5]}")
+    return row["launches"]
+
+
 PROBE = "a question asked while the index restores"
 
 
@@ -2047,6 +2283,8 @@ def main() -> int:
     per_phase.append(phase_snapshot(pt, fk, single, args.seed))
     del single
     torch.cuda.empty_cache()
+    per_phase.append(phase_ring(fk, args.seed))
+    per_phase.append(phase_train(pt, fk, ckpt, written, args.seed))
     phase_spawn(ckpt, args.seed)  # the ranks search no index: no KNN launch
     per_phase.append(phase_persisted(args.seed))
     # last but one: its pw.run serves (and rescans its folder) until the

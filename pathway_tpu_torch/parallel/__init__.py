@@ -12,9 +12,10 @@ merge into the global top-k (``sharded_knn``), in place of the
 reference's broadcast-replicated index (external_index.rs:95 — a full
 copy per worker); and the ``torch.distributed`` process group of the
 ranks that ``python -m pathway_tpu_torch spawn`` starts
-(``distributed``). The exported names load on first use, so importing one
-submodule imports none of the others. Ring attention and training come
-with later slices of the port.
+(``distributed``); exact attention over a sequence split around a ring
+of devices or ranks (``ring_attention``), and the encoder's InfoNCE
+fine-tuning step over a dp/tp mesh (``train``). The exported names load
+on first use, so importing one submodule imports none of the others.
 """
 
 import importlib
@@ -27,11 +28,15 @@ _EXPORTS = {
     "Mesh": "mesh",
     "ShardedKnnIndex": "sharded_knn",
     "sharded_topk": "sharded_knn",
+    "TrainState": "train",
+    "create_train_state": "train",
+    "contrastive_train_step": "train",
+    "make_sharded_train_step": "train",
 }
 
 __all__ = [
     "autoscale", "procgroup", "protocol", "supervisor", "mesh", "sharded_knn",
-    "distributed",
+    "distributed", "ring_attention", "train",
     *_EXPORTS,
 ]
 
@@ -43,3 +48,7 @@ def __getattr__(name: str):
     value = getattr(importlib.import_module(f"{__name__}.{mod}"), name)
     globals()[name] = value
     return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

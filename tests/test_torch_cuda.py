@@ -609,3 +609,47 @@ def test_capture_survives_a_dead_encoder_in_a_cycle(gen):
     finally:
         gc.set_threshold(*threshold)
     assert np.isfinite(emb).all() and live._graphs
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_attention_on_the_card_matches_full_attention(gen, causal):
+    """The ``ring`` phase's check (a): eight shards of the one card, the
+    reference test's geometry in f32 with TF32 off, at 2e-5."""
+    from pathway_tpu_torch.parallel import make_mesh
+    from pathway_tpu_torch.parallel.ring_attention import reference_attention, ring_attention
+
+    q, k, v = (torch.randn((2, 4, 64, 16), generator=gen, device="cuda") for _ in range(3))
+    mesh = make_mesh(devices=["cuda:0"] * 8, axes=("sp",))
+    out = ring_attention(q, k, v, mesh, causal=causal)
+    assert out.device.type == "cuda" and out.shape == q.shape
+    torch.testing.assert_close(out, reference_attention(q, k, v, causal=causal),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_f32_train_step_on_the_card_equals_the_cpu_step(gen):
+    """The ``train`` phase's check (c) at bge-small's width and depth:
+    one f32 step of 8 pairs x 32 tokens on the card and on the CPU, loss
+    at rtol 1e-4 and each gradient within 1e-4 of its largest |g|."""
+    import dataclasses
+
+    import numpy as np
+
+    from chip_smoke import grad_mismatches
+    from pathway_tpu_torch.models import EncoderConfig
+    from pathway_tpu_torch.parallel import create_train_state, make_mesh, make_sharded_train_step
+
+    cfg = dataclasses.replace(EncoderConfig.bge_small(), dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(8, 33, size=(2, 8))
+    masks = [(np.arange(32)[None, :] < n[:, None]).astype(np.int32) for n in lens]
+    ids = [rng.integers(3, cfg.vocab_size, size=(8, 32)).astype(np.int32) * m for m in masks]
+    batch = {"q_ids": ids[0], "q_mask": masks[0], "d_ids": ids[1], "d_mask": masks[1]}
+    out = {}
+    for dev in ("cuda:0", "cpu"):
+        mesh = make_mesh(devices=[dev], axes=("dp", "tp"), shape=(1, 1))
+        state, model, tx = create_train_state(cfg, mesh, seed=7)
+        state, loss = make_sharded_train_step(model, tx, mesh)(state, batch)
+        assert loss.device.type == torch.device(dev).type and state.step == 1
+        out[dev] = (float(loss), {n: p.grad for n, p in model.named_parameters()})
+    assert abs(out["cuda:0"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    assert grad_mismatches(out["cuda:0"][1], out["cpu"][1], 1e-4) == []
