@@ -9,10 +9,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
             (in parallel) and print the card's name and power limit;
 2. kernels  hold each kernel against its plain PyTorch version on the card
             at the main path's shapes (cap = 2^20 rows, d = 384, k = 10,
-            Q in {1, 32, 256}, and Q = 32 at k = 1024; seeded unit vectors,
-            some slots invalid, one exact three-way tie) and time kernel,
-            plain version and a library yardstick; the partial kernel at
-            Q = 256 is also timed under torch.profiler;
+            Q in {1, 32, 256}, Q = 32 at k = 1024 and Q = 1 at k = 8192;
+            seeded unit vectors, some slots invalid, one exact three-way
+            tie) and time kernel, plain version and a library yardstick,
+            with each case's plan and share of its bound; the partial
+            kernel at Q = 256 is also timed under torch.profiler;
 3. main     a bge-small ``SentenceEncoder(checkpoint=dir)``: the script
             writes a seeded checkpoint in the HF layout (config.json,
             pytorch_model.bin under BERT's parameter names, vocab.txt,
@@ -155,8 +156,8 @@ CAP = 1 << 20
 DIM = 384
 K = 10
 # (Q, k) of the kernels phase: the main path's k at three batch sizes,
-# and a large k
-CASES = ((1, K), (32, K), (256, K), (32, 1024))
+# a large k, and the largest (K_MAX: the largest candidate buffer)
+CASES = ((1, K), (32, K), (256, K), (32, 1024), (1, 8192))
 N_DOCS = 16384
 DOC_BATCH = 256
 N_CLIENTS = 64
@@ -318,6 +319,7 @@ def phase_kernels(fk, topk, peaks, seed: int):
         mask = torch.where(valid, 0.0, float("-inf"))
         rows, splits = fk.plan_splits(Q, CAP, k, n_sm)
         tile = fk.plan_tile(Q, k)
+        parts = fk.plan_parts(Q, splits, rows, k, n_sm)
 
         part_v, part_i = fk.knn_partial(q, db, valid, k, rows)
         plain_pv, plain_pi = fk.knn_partial_plain(q, db, valid, k, rows)
@@ -405,10 +407,15 @@ def phase_kernels(fk, topk, peaks, seed: int):
         cm_flops, cm_bytes = fk.fused_knn_cost(Q, CAP, DIM, k, 1024)
         row = {
             "phase": "kernels", "Q": Q, "cap": CAP, "d": DIM, "k": k,
-            "query_tile": tile[0], "queries_per_cta": tile[1],
+            # the partial kernel's plan: queries a CTA (the wgmma N), ring
+            # stages, candidate buffers in shared memory or a scratch
+            # tensor, CTAs that share a split
+            "query_tile": tile.n, "ring_stages": tile.stages,
+            "smem_buffers": tile.smem_buffers, "parts": parts,
             "splits": splits, "rows_per_split": rows,
             "fused_knn_ms": ms, "fused_knn_plain_ms": plain_ms,
             "fused_knn_bound_ms": bound_ms,
+            "fused_knn_bound_share": bound_ms / ms,
             "fused_knn_bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "fused_knn_fp32_bound_ms": 1e3 * max(t_bytes, t_fp32),
             "fused_knn_max_abs_err": part_err,
@@ -739,6 +746,17 @@ def breakdown(pipe, engine, docs, keys, texts):
             stages[name].append(1e3 * (b - a))
     out["query_batch_ms"] = {k: float(np.median(v)) for k, v in stages.items()}
     out["query_batch_tokens"] = list(ids_p.shape)
+    # the partial kernel alone on this index and these query embeddings (the
+    # kernels phase times it on seeded unit rows): CUDA events, and device
+    # time under torch.profiler, to read beside the traced window's
+    from pathway_tpu_torch.ops import fused_knn as fk
+
+    q = emb.float().contiguous()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, _ = fk.plan_splits(q.shape[0], shard.vectors.shape[0], engine.k_eff, n_sm)
+    partial = lambda: fk.knn_partial(q, shard.vectors, shard.valid, engine.k_eff, rows)
+    out["knn_partial_own_data_ms"] = cuda_ms(partial, reps=10)
+    out["knn_partial_own_data_profiler_ms"] = profiled_ms(partial, "partial_kernel", reps=3)
 
     # the checkpoint's tokenizer against the port's memoized WordPiece over
     # the same vocab: the same ids, and each one's time in this call
@@ -806,9 +824,28 @@ def trace(pipe, engine, docs, keys, texts):
         acc[0] += e.time_range.elapsed_us() / 1e3
         acc[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    # the KNN partial kernel in the window: its device time, the gap after
+    # the kernel before it, and the kernels (any stream) that overlap it
+    knn = [e for e in kernels if "partial_kernel" in e.name]
+    knn_window = None
+    if knn:
+        e = knn[0]
+        a, b = e.time_range.start, e.time_range.end
+        others = [o for o in kernels if o is not e
+                  and o.time_range.start < b and o.time_range.end > a]
+        before = [o.time_range.end for o in kernels if o.time_range.end <= a]
+        knn_window = {
+            "device_ms": (b - a) / 1e3,
+            "gap_after_previous_kernel_ms": (a - max(before)) / 1e3 if before else None,
+            "overlapping_kernels": len(others),
+            "overlap_ms": sum(min(b, o.time_range.end) - max(a, o.time_range.start)
+                              for o in others) / 1e3,
+            "overlapping_names": sorted({o.name[:60] for o in others})[:5],
+        }
     return {
         "phase": "profile", "window_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / 1e3 / wall_ms, "kernel_launches": len(kernels),
+        "knn_partial": knn_window,
         "top": [{"name": n, "device_ms": ms, "calls": c} for n, (ms, c) in top],
     }
 

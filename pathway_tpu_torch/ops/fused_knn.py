@@ -12,10 +12,15 @@ partial pass over (query tiles x database splits), then, when there is
 more than one split, a merge of the splits' partials.
 
 It takes every k the JAX index serves, 1 <= k <= 8192 (the clamp of
-``internals/device.py:knn_search_bucket``). The wrapper picks the query
-tile (``plan_tile``) so that the running lists and the load stages fit in
-a block's shared memory, and the splits (``plan_splits``) so that one
-merge block holds every candidate.
+``internals/device.py:knn_search_bucket``). The partial kernel is written
+for Hopper: TMA copies into an mbarrier-guarded ring, 3xTF32 ``wgmma``
+scores, and a batched threshold selection through per-query candidate
+buffers. The wrapper picks the query tile and ring depth (``plan_tile``)
+so that a block's shared memory holds the ring and, where they fit, the
+buffers (else a scratch tensor holds them), the splits (``plan_splits``)
+so that about one CTA runs per SM and one merge block holds every
+candidate, and, where a large k caps the splits, the CTAs that share one
+split's rows (``plan_parts``).
 
 Bound on an H100 SXM: the database read, 4·cap·d bytes at 3.35 TB/s, or,
 when Q is large, the lesser of 2·Q·cap·d FP32 operations at 67 TFLOP/s and
@@ -29,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -43,10 +49,16 @@ from pathway_tpu_torch.ops.topk import chunked_topk_scores
 K_MAX = 8192    # the largest k, the JAX index's clamp (csrc K_MAX)
 _TN = 256       # rows per split are a multiple of this (csrc ROW_GRANULE)
 _MERGE_MAX = 32768  # merge candidates per query, splits * k (csrc MERGE_MAX)
-_TILES = (8, 16, 32, 64, 128)  # query-tile instances of the partial kernel
+_TILES = (8, 16, 32, 64)  # query-tile instances (wgmma N) of the partial kernel
 _SMEM_MAX = 232448  # shared memory one block may use on Hopper (227 KB)
-# shared-memory layout of the partial kernel (csrc partial_smem_bytes)
-_STAGES, _DKP = 2, 68
+# geometry of the partial kernel (csrc TM, ROW_BYTES, MIN/MAX_STAGES,
+# CONSUMER_WARPS): index rows a tile, bytes of a row's 32-dim stage, ring
+# depths, consumer warps
+_TM, _ROW_BYTES = 128, 128
+_MIN_STAGES, _MAX_STAGES = 4, 8
+_MAX_PARTS = 8  # CTAs that share a split (csrc MAX_PARTS)
+_CONSUMER_WARPS = 8
+_SELECT_ROOM = 4096  # shared bytes a consumer warp's selects use (csrc SELECT_ROOM)
 
 # launches of each kernel, counted where the wrapper launches it
 LAUNCHES = {"fused_knn": 0, "topk_merge": 0}
@@ -94,24 +106,26 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("fused_knn")
         lib.fused_knn_partial.argtypes = [
-            _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+            _P, _P, _P, _P, _P, _P,
         ]
         lib.fused_knn_partial.restype = _I
         lib.fused_knn_merge.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P]
         lib.fused_knn_merge.restype = _I
-        lib.fused_knn_partial_smem.argtypes = [_I, _I, _I]
+        lib.fused_knn_partial_smem.argtypes = [_I, _I, _I, _I]
         lib.fused_knn_partial_smem.restype = ctypes.c_longlong
+        lib.fused_knn_capacity.argtypes = [_I]  # the int getters return c_int
         consts = [
             (lib.fused_knn_k_max, (), K_MAX),
             (lib.fused_knn_row_granule, (), _TN),
             (lib.fused_knn_merge_max, (), _MERGE_MAX),
         ] + [
-            (lib.fused_knn_partial_smem, (qt, qpc, k), partial_smem(qt, qpc, k))
-            for qt in _TILES for qpc, k in ((1, 1), (qt, 10), (2, 8192))
+            (lib.fused_knn_capacity, (k,), capacity(k)) for k in (1, 10, 200, 8192)
+        ] + [
+            (lib.fused_knn_partial_smem, (n, st, k, sb), partial_smem(n, st, k, bool(sb)))
+            for n in _TILES for st, k, sb in ((4, 1, 1), (6, 10, 1), (8, 8192, 0))
         ]
         for fn, args, want in consts:
-            if not args:
-                fn.restype = _I
             if fn(*args) != want:
                 raise RuntimeError(
                     f"csrc/fused_knn.cu {fn.__name__}{args} disagrees with the wrapper"
@@ -134,40 +148,71 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def partial_smem(qt: int, qpc: int, k: int) -> int:
-    """Shared-memory bytes of one partial-kernel block: the cp.async ring
-    of database rows and query dims, the score tile, |q|^2 and the ``qpc``
-    running lists of k (value, slot) pairs."""
-    tn = 128 if qt >= 64 else 256
-    return 4 * (_STAGES * (tn + qt) * _DKP + qt * (tn + 4) + qt) + 8 * qpc * k
+def capacity(k: int) -> int:
+    """Candidates a query's buffer holds in the partial kernel: the k best,
+    slack for about k more (a select runs about once per doubling of the
+    rows seen) and one tile's rows, a multiple of 32."""
+    return _cdiv(k + max(k, _TM) + _TM, 32) * 32
+
+
+def partial_smem(n: int, stages: int, k: int, smem_buffers: bool) -> int:
+    """Shared-memory bytes of one partial-kernel block: 1 KB to align the
+    ring, ``stages`` stages of 128 index rows and the ``n`` queries' hi and
+    lo parts (32 dims each), the mbarriers, |q|^2, the running thresholds
+    and counts, each consumer warp's room for its selects, and the
+    candidate buffers when they live in shared memory."""
+    return (
+        1024 + stages * (_TM + 2 * n) * _ROW_BYTES + 16 * _MAX_STAGES + 12 * n
+        + _CONSUMER_WARPS * _SELECT_ROOM
+        + (8 * n * capacity(k) if smem_buffers else 0)
+    )
+
+
+class Tile(NamedTuple):
+    """A partial-kernel launch's geometry: ``n`` queries a CTA (the wgmma
+    N, 8..64), ``stages`` ring stages, and whether the candidate buffers
+    live in shared memory (else in a scratch tensor)."""
+    n: int
+    stages: int
+    smem_buffers: bool
 
 
 @functools.lru_cache(maxsize=1024)
-def plan_tile(q: int, k: int) -> tuple[int, int]:
-    """(query-tile instance, queries per CTA): the smallest instance that
-    covers the batch (at most 128), smaller while the lists do not fit,
-    and below 8 queries per CTA — the mma's N width, the rest of the
-    columns masked — for the largest k."""
+def plan_tile(q: int, k: int) -> Tile:
+    """The smallest instance that covers the batch (at most 64 queries a
+    CTA); the buffers in shared memory where they fit beside a ring of 4
+    stages; then the deepest ring (at most 8 stages) that fits."""
     if not 1 <= k <= K_MAX:
         raise ValueError(f"the fused KNN kernel takes 1 <= k <= {K_MAX}, got {k}")
-    qt = next(t for t in _TILES if t >= min(max(q, 1), _TILES[-1]))
-    while qt > _TILES[0] and partial_smem(qt, qt, k) > _SMEM_MAX:
-        qt //= 2
-    qpc = qt
-    while partial_smem(qt, qpc, k) > _SMEM_MAX:
-        qpc -= 1
-    return qt, qpc
+    n = next(t for t in _TILES if t >= min(max(q, 1), _TILES[-1]))
+    smem_buffers = partial_smem(n, _MIN_STAGES, k, True) <= _SMEM_MAX
+    stages = max(
+        st for st in range(_MIN_STAGES, _MAX_STAGES + 1)
+        if partial_smem(n, st, k, smem_buffers) <= _SMEM_MAX
+    )
+    return Tile(n, stages, smem_buffers)
 
 
 @functools.lru_cache(maxsize=1024)
 def plan_splits(q: int, cap: int, k: int, n_sm: int) -> tuple[int, int]:
-    """(rows per split, splits): about two CTAs per SM over the query
-    tiles, each split a whole number of 256-row granules, and no more
-    than ``_MERGE_MAX`` merge candidates per query."""
-    want = _cdiv(2 * n_sm, _cdiv(q, plan_tile(q, k)[1]))
+    """(rows per split, splits): about one CTA per SM over the query tiles
+    (a CTA fills its SM), each split a whole number of 256-row granules,
+    and no more than ``_MERGE_MAX`` merge candidates per query."""
+    want = n_sm // _cdiv(q, plan_tile(q, k).n)
     want = max(1, min(want, _MERGE_MAX // k, _cdiv(cap, _TN)))
     rows = _cdiv(_cdiv(cap, want), _TN) * _TN
     return rows, _cdiv(cap, rows)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_parts(q: int, splits: int, rows: int, k: int, n_sm: int) -> int:
+    """CTAs that share one split's rows: where the splits leave SMs idle
+    (a large k allows at most 32768 // k of them), up to that many CTAs (at
+    most 8) scan a split, each a whole number of 128-row tiles, and the
+    last to finish cuts their lists (``parts * k`` candidates) to the
+    split's k best."""
+    ctas = _cdiv(q, plan_tile(q, k).n) * splits
+    return max(1, min(n_sm // ctas, _MAX_PARTS, _MERGE_MAX // k, _cdiv(rows, _TM)))
 
 
 def _check(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
@@ -219,7 +264,7 @@ def knn_partial(queries, database, valid, k, rows, *, sq_norms=None,
                 metric="dot"):
     """Partial pass: ``[splits, Q, k]`` top-k values and slots of each
     ``rows``-row split of the database (``rows`` a multiple of 256), the
-    query tile from ``plan_tile``. A CUDA tensor launches the kernel; a
+    tile from ``plan_tile``. A CUDA tensor launches the kernel; a
     CPU tensor runs the plain version."""
     if queries.device.type == "cpu":
         return knn_partial_plain(
@@ -228,7 +273,7 @@ def knn_partial(queries, database, valid, k, rows, *, sq_norms=None,
     dev = queries.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    qt, qpc = plan_tile(queries.shape[0], k)
+    tile = plan_tile(queries.shape[0], k)
     _check("queries", queries, torch.float32, 2, dev)
     _check("database", database, torch.float32, 2, dev)
     _check("valid", valid, torch.bool, 1, dev)
@@ -253,12 +298,25 @@ def knn_partial(queries, database, valid, k, rows, *, sq_norms=None,
     part_i = torch.empty((splits, Q, k), dtype=torch.int32, device=dev)
     if Q == 0 or N == 0:
         return part_v, part_i
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    parts = plan_parts(Q, splits, rows, k, n_sm)
+    groups = _cdiv(Q, tile.n) * splits
+    # scratch: the queries' hi and lo parts; the candidate buffers when they
+    # do not fit in shared memory; the parts' lists and arrival counts
+    qs = torch.empty((2, Q, D), dtype=torch.float32, device=dev)
+    buf = None if tile.smem_buffers else torch.empty(
+        (groups * parts, tile.n, capacity(k)), dtype=torch.int64, device=dev)
+    mbuf = arrived = None
+    if parts > 1:
+        mbuf = torch.empty((groups, tile.n, parts * k), dtype=torch.int64, device=dev)
+        arrived = torch.zeros(groups, dtype=torch.int32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = _launch(
         dev, _lib().fused_knn_partial,
-        queries.data_ptr(), database.data_ptr(), valid.data_ptr(),
+        queries.data_ptr(), qs.data_ptr(), database.data_ptr(), valid.data_ptr(),
         sq_norms.data_ptr() if l2sq else None,
-        Q, N, D, k, int(l2sq), rows, splits, qt, qpc,
-        part_v.data_ptr(), part_i.data_ptr(),
+        Q, N, D, k, int(l2sq), rows, splits, parts, tile.n, tile.stages,
+        ptr(buf), ptr(mbuf), ptr(arrived), part_v.data_ptr(), part_i.data_ptr(),
     )
     if err:
         raise RuntimeError(f"fused_knn partial launch failed: cudaError {err}")
@@ -312,7 +370,7 @@ def fused_topk_scores(
 
     ``metric`` is "dot" or "l2sq" (negated squared distance, from
     ``sq_norms``). Scores are fp32-accurate. ``k`` is 1..8192 on every
-    device. On CUDA: the partial kernel over about two CTAs per SM, then
+    device. On CUDA: the partial kernel over about one CTA per SM, then
     the merge kernel unless the plan has one split; on the CPU: the plain
     ``chunked_topk_scores``.
     """

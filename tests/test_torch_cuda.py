@@ -200,6 +200,72 @@ def test_merge_at_the_largest_plan(gen, splits, kp, k):
     assert torch.equal(mv, xv) and torch.equal(mi, xi)
 
 
+# -- the partial kernel's edges: wgmma N padding, query tiles, the buffers ------
+
+
+def _edge_case(gen, Q, N, D, k, rows=None, metric="dot", valid_p=0.2, ties=()):
+    """The partial against ``knn_partial_plain`` split by split, and the
+    pair against ``chunked_topk_scores``, under the rules above; ``ties``
+    are slots that hold query 0 exactly (times 3 for dot: the top score)."""
+    q = torch.randn(Q, D, generator=gen, device="cuda")
+    db = torch.randn(N, D, generator=gen, device="cuda")
+    valid = torch.rand(N, generator=gen, device="cuda") > valid_p
+    for s in ties:
+        db[s] = q[0] * (1.0 if metric == "l2sq" else 3.0)
+        valid[s] = True
+    sq = (db * db).sum(-1)
+    if rows is None:
+        rows = fused_knn.plan_splits(Q, N, k, torch.cuda.get_device_properties(0).multi_processor_count)[0]
+    pv, pi = fused_knn.knn_partial(q, db, valid, k, rows, sq_norms=sq, metric=metric)
+    wv, wi = fused_knn.knn_partial_plain(q, db, valid, k + 1, rows, sq_norms=sq, metric=metric)
+    assert pv.shape == (-(-N // rows), Q, k)
+    for s in range(pv.shape[0]):
+        _check(pv[s], pi[s], wv[s], wi[s], k, _bound(q, db, wi[s], k, metric))
+    v, i = fused_knn.fused_topk_scores(q, db, valid, k, sq_norms=sq, metric=metric)
+    pv2, pi2 = topk.chunked_topk_scores(q, db, valid, min(k + 1, N), sq_norms=sq, metric=metric)
+    pad = k + 1 - pv2.shape[1]  # fewer rows than k + 1: every gap defined
+    pv2 = torch.nn.functional.pad(pv2, (0, pad), value=float("-inf"))
+    pi2 = torch.nn.functional.pad(pi2, (0, pad), value=0)
+    _check(v, i, pv2, pi2, k, _bound(q, db, pi2, k, metric))
+    if ties:
+        assert i[0, :len(ties)].tolist() == list(ties)
+        assert (v[0, :len(ties)] == v[0, 0]).all()
+    return v, i
+
+
+@pytest.mark.parametrize("Q", [1, 7, 8, 9, 64, 255, 256])
+def test_partial_kernel_query_tile_edges(gen, Q):
+    """N padding of the wgmma (Q = 1 runs as N = 8) and the query tiles'
+    edges: a full instance, one query past it, four tiles of 64."""
+    assert fused_knn.plan_tile(Q, 10).n >= min(Q, fused_knn._TILES[-1])
+    _edge_case(gen, Q, 20000, 96, 10)
+
+
+@pytest.mark.parametrize("k", [1, 10, 32, 33, 1024, 8192])
+def test_partial_kernel_k_edges(gen, k):
+    """One selection for every k: the register sort up to 32, the shared
+    sort above, and K_MAX with its buffers in a scratch tensor."""
+    _edge_case(gen, 3, 40000, 64, k)
+
+
+def test_partial_kernel_ragged_split_invalid_rows_l2sq_and_tile_boundary_tie(gen):
+    """A split of 5077 - 6 * 768 = 469 rows (not a multiple of the 128-row
+    tile), half the rows invalid, the l2sq epilogue, and an exact tie
+    across a tile boundary (rows 127 and 128) and a split boundary."""
+    _edge_case(gen, 5, 5077, 40, 7, rows=768, metric="l2sq", valid_p=0.5,
+               ties=(127, 128, 768, 5076))
+
+
+@pytest.mark.parametrize("N,k", [(300, 1024), (1000, 8192)])
+def test_partial_kernel_capacity_below_k(gen, N, k):
+    """An index of fewer rows than k: every valid row comes back, the rest
+    of the list is -inf with a slot in range."""
+    v, i = _edge_case(gen, 2, N, 16, k)
+    n_valid = torch.isfinite(v).sum(-1)
+    assert (n_valid == n_valid[0]).all() and int(n_valid[0]) <= N
+    assert ((i >= 0) & (i < N)).all()
+
+
 def test_device_plane_closes_a_knn_search_record_on_cuda_events(gen):
     """An armed plane times ``knn.search`` between two CUDA events and
     delivers the record without a synchronize of its own."""

@@ -135,11 +135,21 @@ def test_split_and_merge_plain_one_split_and_past_old_limit(rows, k):
 
 @pytest.mark.parametrize("q,k", [(1, 10), (32, 10), (256, 10), (32, 1024), (1, 8192), (129, 129)])
 def test_plan_fits_shared_memory_and_one_merge_block(q, k):
-    qt, qpc = fused_knn.plan_tile(q, k)
-    assert qt in fused_knn._TILES and 1 <= qpc <= qt
-    assert fused_knn.partial_smem(qt, qpc, k) <= fused_knn._SMEM_MAX
+    tile = fused_knn.plan_tile(q, k)
+    assert tile.n in fused_knn._TILES and tile.n >= min(q, fused_knn._TILES[-1])
+    assert fused_knn._MIN_STAGES <= tile.stages <= fused_knn._MAX_STAGES
+    assert fused_knn.partial_smem(tile.n, tile.stages, k, tile.smem_buffers) <= fused_knn._SMEM_MAX
+    # a buffer takes the k best plus one more tile; the ring holds one
+    # warp's final sort of k keys
+    assert fused_knn.capacity(k) >= k + fused_knn._TM
+    assert tile.stages * (fused_knn._TM + 2 * tile.n) * 128 >= 8 * k
     rows, splits = fused_knn.plan_splits(q, 1 << 20, k, 132)
-    assert splits * k <= fused_knn._MERGE_MAX and rows % 256 == 0
+    assert splits * k <= fused_knn._MERGE_MAX and rows % fused_knn._TN == 0
+    assert (splits - 1) * rows < 1 << 20 <= splits * rows
+    # about one CTA per SM, never more than one wave
+    assert -(-q // tile.n) * splits <= max(132, -(-q // tile.n))
+    if (q, k) == (32, 1024):  # one query tile: the index is read once per split
+        assert tile.n == 32 and splits == 32
 
 
 def test_short_split_pads_missing_entries():
