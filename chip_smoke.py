@@ -108,7 +108,32 @@ Phases (each prints one JSON line; any failure exits non-zero):
             over its indexes (a miss reports why: ``miss_detail``); the
             restart's time to its first answer and the first run's ingest
             time;
-12. doctor  the plan doctor and the Device Doctor on the card:
+12. rerank  (before dataflow: a static program that ``pw.run`` finishes;
+            the parse graph is cleared after it) the rerank path that
+            upstream Pathway documents for ``pw.xpacks.llm.rerankers``:
+            4,096 seeded documents as files (``pw.io.fs.read``, static) ->
+            ``VectorStoreServer`` with ``SentenceTransformerEmbedder(
+            "bge-small")`` -> ``retrieve_query`` of 256 queries (each the
+            first 12 words of a distinct document) at k = 8 -> ``flatten``
+            -> ``CrossEncoderReranker`` over a bge-small ``CrossEncoder``
+            (seeded weights, bf16 activations, on the card) -> ``groupby(
+            query).reduce`` -> ``rerank_topk_filter(docs, scores, 2)``;
+            checks that the model and every tensor it scores are on the
+            card, that the phase launched the KNN kernel and never
+            imported JAX; that the scores hold a cosine of 0.999 to the
+            same weights at f32 on the card over all 2,048 pairs, and each
+            query keeps f32's pair wherever f32's gap between ranks 2 and
+            3 exceeds twice the largest bf16 error; that f32 on the card
+            is within 1e-4 of the largest score of f32 on the CPU on 32
+            pairs; that every output row equals a re-sort of its
+            candidates by the scores of ``CrossEncoder.score`` over the
+            batches the UDF was handed, bit for bit; and that every engine
+            search equals the plain scan over the index's own vectors.
+            Prints the run's seconds and pairs/s, the UDF's batch sizes,
+            the forwards and their bucket shapes, ms per 64-pair forward
+            (CUDA events), peak device bytes, the own-document recall of
+            the candidates and the KNN launches;
+13. doctor  the plan doctor and the Device Doctor on the card:
             ``pw.analyze(device=True)`` of the dataflow phase's own program
             must equal ``analyze_scope`` of its running engine, whose
             fallback counters ``audit_runtime`` holds against it;
@@ -127,11 +152,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
             pathway_tpu_torch.analysis --device-plan --json`` exits 0 with
             the card's budget, ``--device-mutant over_budget`` exits 2 and
             a ``--mesh`` check exits 0;
-13. report  the ``kernels`` JSON line (launches summed over every phase),
+14. report  the ``kernels`` JSON line (launches summed over every phase),
             then the device line.
 
 The phases run in the order build, kernels, main, supervised, sharded,
-snapshot, ring, train, spawn, persisted, dataflow, doctor.
+snapshot, ring, train, spawn, persisted, rerank, dataflow, doctor.
 
 It needs one CUDA card and the rest of the repository beside it; without
 either it exits non-zero and prints no result.
@@ -208,6 +233,24 @@ TR_CHECK_PAIRS = 8
 SP_DOCS = 4096
 SP_TOPICS = 16
 SP_TIMEOUT_S = 300
+# the rerank phase: the cross-encoder behind the KNN kernel's candidates.
+# k = 8 is examples/adaptive-rag/app.yaml's largest document count
+# (2 * 2^(3 - 1)) and 2 kept its n_starting_documents; the queries are
+# the first 12 words of distinct documents
+RR_DOCS = 4096
+RR_QUERIES = 256
+RR_QUERY_WORDS = 12
+RR_K = 8
+RR_KEEP = 2
+RR_PAIRS = RR_QUERIES * RR_K
+# the cross-encoder's weights: init_cross_params at this seed (the data
+# follows --seed)
+RR_CE_SEED = 0
+# bf16 against f32 on the card (tests/test_hf_parity.py's bar for the bf16
+# encoder), and f32 on the card against f32 on the CPU
+RR_COSINE_MIN = 0.999
+RR_CPU_PAIRS = 32
+RR_CPU_REL = 1e-4
 
 
 def emit(obj) -> None:
@@ -520,6 +563,51 @@ def agree_with_plain(res, pv, pi, slot_to_key, k) -> int:
         gap = v[:-1] - v[1:]
         clear = np.minimum(np.r_[np.inf, gap[:k - 1]], gap) > 1e-5
         agree += len(got) == k and all(g == w for g, w, c in zip(got, want, clear) if c)
+    return agree
+
+
+def record_searches():
+    """Record every search the engine makes through ``_KnnAdapter.search``
+    as (adapter, query vector, limit, keys). Returns the list, the lock
+    that guards it, and a function that undoes the patch."""
+    from pathway_tpu_torch.stdlib.indexing import nearest_neighbors as nn_mod
+
+    searches: list = []
+    lock = threading.Lock()
+    search = nn_mod._KnnAdapter.search
+
+    def recording_search(self, queries):
+        out = search(self, queries)
+        with lock:
+            for (qdata, limit, _), (keys, _) in zip(queries, out):
+                searches.append((self, np.asarray(qdata, np.float32), limit, keys))
+        return out
+
+    nn_mod._KnnAdapter.search = recording_search
+    return searches, lock, lambda: setattr(nn_mod._KnnAdapter, "search", search)
+
+
+def searches_equal_plain(recorded) -> int:
+    """Engine searches, recorded as (adapter, query vector, limit, keys),
+    whose keys are the plain scan's over the adapter's own vectors at every
+    rank whose score stands 1e-5 clear of its neighbours (the kernels
+    phase's rule)."""
+    import torch
+
+    from pathway_tpu_torch.ops.topk import chunked_topk_scores
+
+    agree = 0
+    for adapter, qvec, limit, keys in recorded:
+        shard = adapter.shard
+        q = torch.from_numpy(qvec).to(shard.device)[None]
+        q = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-30)
+        with shard.lock:
+            pv, pi = chunked_topk_scores(q, shard.vectors, shard.valid, limit + 1)
+            want = [shard.slot_to_key.get(int(s)) for s in pi[0, :limit].tolist()]
+        v = pv[0].cpu().numpy()
+        gap = v[:-1] - v[1:]
+        clear = np.minimum(np.r_[np.inf, gap[:limit - 1]], gap) > 1e-5
+        agree += len(keys) == limit and all(g == w for g, w, c in zip(keys, want, clear) if c)
     return agree
 
 
@@ -1155,8 +1243,6 @@ def phase_dataflow(fk, seed: int):
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.internals import device as devplane
     from pathway_tpu_torch.internals.monitoring import ProberStats
-    from pathway_tpu_torch.ops.topk import chunked_topk_scores
-    from pathway_tpu_torch.stdlib.indexing import nearest_neighbors as nn_mod
     from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
     from pathway_tpu_torch.xpacks.llm.mocks import IdentityMockChat
     from pathway_tpu_torch.xpacks.llm.question_answering import (
@@ -1174,18 +1260,7 @@ def phase_dataflow(fk, seed: int):
             f.write(text)
 
     # every search the engine makes, with the query vector it was given
-    searches: list = []
-    search_lock = threading.Lock()
-    adapter_search = nn_mod._KnnAdapter.search
-
-    def recording_search(self, queries):
-        out = adapter_search(self, queries)
-        with search_lock:
-            for (qdata, limit, _), (keys, _) in zip(queries, out):
-                searches.append((self, np.asarray(qdata, np.float32), limit, keys))
-        return out
-
-    nn_mod._KnnAdapter.search = recording_search
+    searches, search_lock, stop_recording = record_searches()
     # the Runtime pw.run builds, for the doctor phase's plan-vs-run audit
     from pathway_tpu_torch.engine.runtime import Runtime
 
@@ -1303,20 +1378,8 @@ def phase_dataflow(fk, seed: int):
     if len(recorded) < DF_RETRIEVES + DF_ANSWERS:
         fail(f"the engine made {len(recorded)} index searches for "
              f"{DF_RETRIEVES + DF_ANSWERS} requests")
-    agree = 0
-    for adapter, qvec, limit, keys in recorded:
-        shard = adapter.shard
-        q = torch.from_numpy(qvec).to(shard.device)[None]
-        q = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-30)
-        with shard.lock:
-            pv, pi = chunked_topk_scores(q, shard.vectors, shard.valid, limit + 1)
-            want = [shard.slot_to_key.get(int(s)) for s in pi[0, :limit].tolist()]
-        v = pv[0].cpu().numpy()
-        gap = v[:-1] - v[1:]
-        clear = np.minimum(np.r_[np.inf, gap[:limit - 1]], gap) > 1e-5
-        agree += len(keys) == limit and all(
-            g == w for g, w, c in zip(keys, want, clear) if c)
-    nn_mod._KnnAdapter.search = adapter_search
+    agree = searches_equal_plain(recorded)
+    stop_recording()
 
     with stats._frame_lock:
         sites = {
@@ -1782,7 +1845,6 @@ def persisted_child(folder: str, pdir: str, out: str, n_files: int, queries: lis
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.models.encoder import SentenceEncoder
     from pathway_tpu_torch.ops import fused_knn as fk
-    from pathway_tpu_torch.ops.topk import chunked_topk_scores
     from pathway_tpu_torch.stdlib.indexing import nearest_neighbors as nn_mod
     from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
     from pathway_tpu_torch.xpacks.llm.mocks import IdentityMockChat
@@ -1794,9 +1856,8 @@ def persisted_child(folder: str, pdir: str, out: str, n_files: int, queries: lis
     lock = threading.Lock()
     embedded: list = []
     added: list = []
-    searches: list = []
-    encode, add_batch, search = (
-        SentenceEncoder.encode, nn_mod._KnnAdapter.add_batch, nn_mod._KnnAdapter.search)
+    searches, search_lock, _ = record_searches()
+    encode, add_batch = SentenceEncoder.encode, nn_mod._KnnAdapter.add_batch
 
     def counting_encode(self, texts, *a, **kw):
         with lock:
@@ -1808,16 +1869,8 @@ def persisted_child(folder: str, pdir: str, out: str, n_files: int, queries: lis
             added.extend(k for k, _, _ in rows)
         return add_batch(self, rows)
 
-    def recording_search(self, qs):
-        res = search(self, qs)
-        with lock:
-            for (qdata, limit, _), (keys, _) in zip(qs, res):
-                searches.append((self, np.asarray(qdata, np.float32), limit, keys))
-        return res
-
     SentenceEncoder.encode = counting_encode
     nn_mod._KnnAdapter.add_batch = counting_add_batch
-    nn_mod._KnnAdapter.search = recording_search
     adapters: list = []
     init = nn_mod._KnnAdapter.__init__
 
@@ -1863,33 +1916,23 @@ def persisted_child(folder: str, pdir: str, out: str, n_files: int, queries: lis
     ingest_s = time.perf_counter() - t_run
     with lock:
         embedded_ingest = [t for t in embedded if t != PROBE]
+    with search_lock:
         searches.clear()
     hits, missed = [], []
     for text, name in queries:
-        with lock:
+        with search_lock:
             before = len(searches)
         res = client.retrieve(text, k=K) if not errors else []
         got = [os.path.basename(r["metadata"]["path"]) for r in res]
         hits.append(name in got and len(res) == K)
         if not hits[-1]:
-            with lock:
+            with search_lock:
                 mine = searches[before:]
             missed.append({"name": name, "returned": len(res),
                            "indexes": [miss_detail(a, q, name) for a, q, _, _ in mine]})
-    agree = 0
-    with lock:
+    with search_lock:
         recorded = list(searches)
-    for adapter, qvec, limit, keys in recorded:
-        shard = adapter.shard
-        q = torch.from_numpy(qvec).to(shard.device)[None]
-        q = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-30)
-        with shard.lock:
-            pv, pi = chunked_topk_scores(q, shard.vectors, shard.valid, limit + 1)
-            want = [shard.slot_to_key.get(int(s)) for s in pi[0, :limit].tolist()]
-        v = pv[0].cpu().numpy()
-        gap = v[:-1] - v[1:]
-        clear = np.minimum(np.r_[np.inf, gap[:limit - 1]], gap) > 1e-5
-        agree += len(keys) == limit and all(g == w for g, w, c in zip(keys, want, clear) if c)
+    agree = searches_equal_plain(recorded)
     torch.cuda.synchronize()
     with open(out, "w") as f:
         json.dump({
@@ -2011,6 +2054,278 @@ def phase_persisted(seed: int):
                  f"{r['engine_searches']} equal the plain scan, for {PS_RETRIEVES} retrieves")
     if not launches.get("fused_knn") or not launches.get("topk_merge"):
         fail(f"the persisted runs did not launch both kernels: {launches}")
+    return launches
+
+
+def rerank_program(pw, folder: str, queries: list, embedder, reranker):
+    """The rerank dataflow as upstream Pathway documents it for
+    ``pw.xpacks.llm.rerankers``: ``retrieve_query`` (k = RR_K) over a
+    ``VectorStoreServer`` of the folder's files, ``flatten`` of the
+    candidates, a score per (query, document) pair from the reranker,
+    ``groupby(query).reduce`` into tuples, ``rerank_topk_filter``."""
+    from pathway_tpu_torch.xpacks.llm.rerankers import rerank_topk_filter
+    from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreServer
+
+    docs = pw.io.fs.read(folder, format="binary", with_metadata=True, mode="static")
+    store = VectorStoreServer(docs, embedder=embedder)
+    q = pw.debug.table_from_markdown(
+        "query | k\n" + "".join(f"{text} | {RR_K}\n" for text in queries),
+        schema=store.RetrieveQuerySchema)
+    candidates = q.select(query=pw.this.query, docs=store.retrieve_query(q).result)
+    pairs = candidates.flatten(pw.this.docs)
+    scored = pairs.with_columns(score=reranker(pw.this.docs, pw.this.query))
+    grouped = scored.groupby(pw.this.query).reduce(
+        pw.this.query,
+        docs=pw.reducers.tuple(pw.this.docs),
+        scores=pw.reducers.tuple(pw.this.score),
+    )
+    return grouped.select(
+        pw.this.query, pw.this.docs, pw.this.scores,
+        kept=rerank_topk_filter(pw.this.docs, pw.this.scores, RR_KEEP))
+
+
+def cross_forward_flops(cfg, n: int, L: int) -> float:
+    """Operations of one cross-encoder forward over n pairs of L tokens:
+    each layer's four projections and two MLP products, its attention
+    scores and their product with the values, then the pool and score
+    heads."""
+    h, layers = cfg.hidden, cfg.layers
+    per_layer = 2 * n * L * (4 * h * h + 2 * h * cfg.mlp) + 4 * n * L * L * h
+    return layers * per_layer + 2 * n * (h * h + h)
+
+
+def phase_rerank(fk, seed: int):
+    """The rerank path on the card: bge-small's KNN candidates scored by a
+    bge-small cross-encoder (seeded weights, bf16 activations) inside a
+    static program that ``pw.run`` finishes; the parse graph is cleared
+    after it, for the dataflow phase's program."""
+    import collections
+    import dataclasses
+
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.device import peak_rates
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.models import CrossEncoder, EncoderConfig
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.rerankers import CrossEncoderReranker
+
+    # the f32 twin is held to the CPU at 1e-4 only with IEEE f32 products
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("TF32 is on in the rerank phase")
+    rng = np.random.default_rng(seed + 41)
+    texts = make_docs(vocab_words(), rng, RR_DOCS)
+    names = [f"doc{i:05d}.txt" for i in range(RR_DOCS)]
+    folder = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_rerank_"), "docs")
+    os.makedirs(folder)
+    for name, text in zip(names, texts):
+        with open(os.path.join(folder, name), "w", encoding="utf-8") as f:
+            f.write(text)
+    picks = rng.choice(RR_DOCS, size=RR_QUERIES, replace=False)
+    queries = [" ".join(texts[i].split()[:RR_QUERY_WORDS]) for i in picks]
+    own = {q: names[i] for q, i in zip(queries, picks)}
+    if len(own) != RR_QUERIES:
+        fail("the rerank queries are not distinct")
+
+    ce = CrossEncoder(EncoderConfig.bge_small(), seed=RR_CE_SEED)  # the card
+    reranker = CrossEncoderReranker(cross_encoder=ce)
+    # every batch the UDF hands the model, and every forward it runs
+    calls: list = []
+    score = ce.score
+
+    def recording_score(pairs):
+        out = score(pairs)
+        calls.append((list(pairs), out.copy()))
+        return out
+
+    ce.score = recording_score
+    forwards: list = []
+    input_devices: set = set()
+    inputs: dict = {}  # the last (ids, mask) of each bucket shape
+
+    def before(module, args):
+        input_devices.update(str(a.device) for a in args)
+        inputs[tuple(args[0].shape)] = args
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        forwards.append([tuple(args[0].shape), start, None])
+
+    def after(module, args, out):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        forwards[-1][2] = end
+
+    hooks = [ce.model.register_forward_pre_hook(before),
+             ce.model.register_forward_hook(after)]
+    # every search the engine makes, with the query vector it was given
+    searches, _, stop_recording = record_searches()
+
+    out = rerank_program(pw, folder, queries, SentenceTransformerEmbedder("bge-small"),
+                         reranker)
+    rows: dict = {}
+
+    def on_change(key, row, time, is_addition):
+        # the first insertion per query: as-of-now answers are retracted
+        # at the next time, as in the JAX package
+        if is_addition:
+            rows.setdefault(row["query"], row)
+
+    pw.io.subscribe(out, on_change=on_change)
+    zero_launches(fk)  # counts of this phase only
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pw.run()
+    run_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(fk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for h in hooks:
+        h.remove()
+    ce.score = score
+    stop_recording()
+    G.clear()
+    # check 5: the candidates are the plain scan's over the index's vectors
+    searches_agree = searches_equal_plain(searches)
+
+    forward_ms = [(shape, start.elapsed_time(end)) for shape, start, end in forwards]
+    full = [ms for shape, ms in forward_ms if shape[0] == ce.batch_size]
+    shapes = collections.Counter(shape for shape, _ in forward_ms)
+    # the commonest bucket alone: eager ms (CUDA events), the device time
+    # of its kernels, and the least time at the card's bf16 peak
+    common = max(shapes, key=shapes.get)
+
+    def forward():
+        with torch.inference_mode():
+            ce.model(*inputs[common])
+
+    alone_ms = cuda_ms(forward, reps=5)
+    alone_device_ms = profiled_ms(forward, "", reps=5)
+    bound_ms = 1e3 * cross_forward_flops(ce.config, *common) / peak_rates()["bf16"]
+    # check 4: the same batches scored outside the dataflow give the same
+    # bits; the insertions' batches come first, so a pair's first score is
+    # the one its output row carries
+    outside: dict = {}
+    batches: list = []
+    recomputed_equal = True
+    for pairs, got in calls:
+        again = score(pairs)
+        recomputed_equal &= bool(np.array_equal(again.view(np.uint32), got.view(np.uint32)))
+        if any(p not in outside for p in pairs):
+            batches.append(pairs)
+        for p, s in zip(pairs, again):
+            outside.setdefault(p, float(s))
+    resort_equal = 0
+    recall_hits = 0
+    for query, row in rows.items():
+        cand = list(row["docs"])
+        cand_texts = [d.value["text"] for d in cand]
+        paths = [os.path.basename(d.value["metadata"]["path"]) for d in cand]
+        recall_hits += own.get(query) in paths
+        s = [outside.get((query, t)) for t in cand_texts]
+        if len(cand) != RR_K or None in s:
+            continue
+        order = sorted(range(len(s)), key=lambda i: -s[i])[:RR_KEEP]
+        kept_docs, kept_scores = row["kept"]
+        resort_equal += (
+            [d.value["text"] for d in kept_docs] == [cand_texts[i] for i in order]
+            and list(kept_scores) == [s[i] for i in order]
+            and list(row["scores"]) == s)
+    recall = recall_hits / RR_QUERIES
+
+    # check 2: the same weights at f32 on the card, over the same batches;
+    # check 3: f32 on the card against f32 on the CPU on the first pairs
+    params = {k: v.detach().cpu() for k, v in ce.model.state_dict().items()}
+    f32 = dataclasses.replace(ce.config, dtype=torch.float32)
+    card_f32 = CrossEncoder(f32, params=params, device=ce.device)
+    cpu_f32 = CrossEncoder(f32, params=params, device="cpu")
+    card_f32.tokenizer = cpu_f32.tokenizer = ce.tokenizer
+    f32_scores: dict = {}
+    for pairs in batches:
+        for p, s in zip(pairs, card_f32.score(pairs)):
+            f32_scores.setdefault(p, float(s))
+    keys = sorted(outside)
+    a = np.array([outside[p] for p in keys], np.float64)
+    b = np.array([f32_scores[p] for p in keys], np.float64)
+    cosine = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+    bf16_err = float(np.abs(a - b).max())
+    clear_gap, kept_as_f32 = 0, 0
+    for query, row in rows.items():
+        cand_texts = [d.value["text"] for d in row["docs"]]
+        s32 = np.array([f32_scores[(query, t)] for t in cand_texts])
+        order = np.argsort(-s32, kind="stable")
+        if s32[order[RR_KEEP - 1]] - s32[order[RR_KEEP]] > 2 * bf16_err:
+            clear_gap += 1
+            kept_as_f32 += ({d.value["text"] for d in row["kept"][0]}
+                            == {cand_texts[i] for i in order[:RR_KEEP]})
+    first = batches[0][:RR_CPU_PAIRS] if batches else []
+    on_card = card_f32.score(first)
+    on_cpu = cpu_f32.score(first)
+    cpu_err = float(np.abs(on_card - on_cpu).max()) if first else float("inf")
+    cpu_bound = RR_CPU_REL * float(np.abs(on_card).max()) if first else 0.0
+
+    row = {
+        "phase": "rerank", "config": "bge-small", "docs": RR_DOCS,
+        "queries": RR_QUERIES, "k": RR_K, "keep": RR_KEEP, "pairs": len(outside),
+        "run_s": run_s, "pairs_per_s": len(outside) / run_s,
+        "udf_calls": len(calls),
+        "udf_batch_sizes": dict(sorted(collections.Counter(len(p) for p, _ in calls).items())),
+        "forwards": len(forwards),
+        "forward_ms_64_median": float(np.median(full)) if full else None,
+        "forward_ms_total": float(sum(ms for _, ms in forward_ms)),
+        "bucket_shapes": {f"{n}x{L}": c for (n, L), c in sorted(shapes.items())},
+        "common_bucket": "x".join(map(str, common)),
+        "common_alone_ms": alone_ms, "common_alone_device_ms": alone_device_ms,
+        "common_bound_ms": bound_ms,
+        "peak_device_bytes": peak,
+        "launches": launches,
+        "model_device": sorted({p.device.type for p in ce.model.parameters()}),
+        "input_devices": sorted(input_devices),
+        "checks": {
+            "engine_searches": len(searches),
+            "searches_equal_plain": searches_agree,
+            "recall_own_doc_top8": recall,
+            "bf16_vs_f32_cosine": cosine, "bf16_vs_f32_max_abs_err": bf16_err,
+            "kept_as_f32": f"{kept_as_f32}/{clear_gap}",
+            "f32_card_vs_cpu_max_abs_err": cpu_err, "f32_card_vs_cpu_bound": cpu_bound,
+            "dataflow_equal_outside": f"{resort_equal}/{len(rows)}",
+            "outside_rescore_bit_equal": recomputed_equal,
+        },
+        "jax_loaded": "jax" in sys.modules,
+    }
+    emit(row)
+    del ce, reranker, card_f32, cpu_f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    # check 1
+    if row["model_device"] != ["cuda"] or any(not d.startswith("cuda") for d in input_devices):
+        fail(f"the cross-encoder ran off the card: {row['model_device']}, {row['input_devices']}")
+    if launches.get("fused_knn", 0) <= 0:
+        fail(f"the rerank phase launched no KNN kernel: {launches}")
+    if "jax" in sys.modules or any(m.startswith("pathway_tpu.") for m in sys.modules):
+        fail("JAX or the JAX package was imported")
+    if len(rows) != RR_QUERIES or len(outside) != RR_PAIRS:
+        fail(f"the rerank answered {len(rows)} of {RR_QUERIES} queries "
+             f"and scored {len(outside)} of {RR_PAIRS} pairs")
+    # check 2
+    if cosine < RR_COSINE_MIN:
+        fail(f"bf16 scores against f32: cosine {cosine} < {RR_COSINE_MIN}")
+    if kept_as_f32 != clear_gap:
+        fail(f"{clear_gap - kept_as_f32} of {clear_gap} queries with a clear gap "
+             "keep other pairs than f32")
+    # check 3
+    if not cpu_err <= cpu_bound:
+        fail(f"f32 on the card against the CPU: {cpu_err} > {cpu_bound}")
+    # check 4
+    if not recomputed_equal or resort_equal != len(rows):
+        fail(f"the dataflow's kept pairs differ from a re-sort of the scores "
+             f"computed outside it: {resort_equal} of {len(rows)} equal, "
+             f"rescore bit-equal {recomputed_equal}")
+    # check 5
+    if not searches or searches_agree != len(searches):
+        fail(f"{len(searches) - searches_agree} of {len(searches)} engine searches "
+             "disagree with the plain scan")
     return launches
 
 
@@ -2324,6 +2639,9 @@ def main() -> int:
     per_phase.append(phase_train(pt, fk, ckpt, written, args.seed))
     phase_spawn(ckpt, args.seed)  # the ranks search no index: no KNN launch
     per_phase.append(phase_persisted(args.seed))
+    # a static program that pw.run finishes: before the dataflow phase,
+    # whose pw.run serves until the process ends
+    per_phase.append(phase_rerank(fk, args.seed))
     # last but one: its pw.run serves (and rescans its folder) until the
     # process ends; the doctor audits that running program
     df_launches, df_runtime = phase_dataflow(fk, args.seed)

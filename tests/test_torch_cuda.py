@@ -719,3 +719,36 @@ def test_f32_train_step_on_the_card_equals_the_cpu_step(gen):
         out[dev] = (float(loss), {n: p.grad for n, p in model.named_parameters()})
     assert abs(out["cuda:0"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
     assert grad_mismatches(out["cuda:0"][1], out["cpu"][1], 1e-4) == []
+
+
+def test_bge_small_cross_encoder_on_the_card_equals_the_cpu_twin(gen):
+    """The ``rerank`` phase's check 3: the bge-small cross-encoder at f32
+    on the card against the same weights and tokenizer on the CPU, on 16
+    pairs, within 1e-4 of the largest |score|."""
+    import dataclasses
+
+    import numpy as np
+
+    from chip_smoke import RR_CPU_REL, make_docs, vocab_words
+    from pathway_tpu_torch.models import CrossEncoder, EncoderConfig
+
+    cfg = dataclasses.replace(EncoderConfig.bge_small(), dtype=torch.float32)
+    card = CrossEncoder(cfg, seed=0)
+    cpu = CrossEncoder(cfg, params={k: v.cpu() for k, v in card.model.state_dict().items()},
+                       device="cpu")
+    cpu.tokenizer = card.tokenizer
+    docs = make_docs(vocab_words(), np.random.default_rng(0), 16)
+    pairs = [(" ".join(d.split()[:12]), docs[(i + 1) % 16]) for i, d in enumerate(docs)]
+    assert next(card.model.parameters()).device.type == "cuda"
+    on_card, on_cpu = card.score(pairs), cpu.score(pairs)
+    assert on_card.shape == on_cpu.shape == (16,) and np.std(on_cpu) > 0
+    assert np.abs(on_card - on_cpu).max() <= RR_CPU_REL * np.abs(on_card).max()
+
+
+def test_cross_encoder_reranker_defaults_to_the_card(gen):
+    from pathway_tpu_torch.xpacks.llm.rerankers import CrossEncoderReranker
+
+    reranker = CrossEncoderReranker()
+    assert {p.device.type for p in reranker._ce.model.parameters()} == {"cuda"}
+    scores = reranker.func([{"text": "a document"}, "another document"], ["a query"] * 2)
+    assert len(scores) == 2 and all(s == s and abs(s) < float("inf") for s in scores)
