@@ -13,7 +13,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
             seeded unit vectors, some slots invalid, one exact three-way
             tie) and time kernel, plain version and a library yardstick,
             with each case's plan and share of its bound; the partial
-            kernel at Q = 256 is also timed under torch.profiler;
+            kernel at Q = 256 is also timed under torch.profiler; every
+            case again at precision "default" (the partial kernel's
+            one-pass TF32 instance): partials within 3e-5 of the plain
+            version, slots equal where its gap exceeds 6e-5, the merge bit
+            for bit, the tie to the lower slot, and its times beside its
+            bound and a TF32 library yardstick;
 3. main     a bge-small ``SentenceEncoder(checkpoint=dir)``: the script
             writes a seeded checkpoint in the HF layout (config.json,
             pytorch_model.bin under BERT's parameter names, vocab.txt,
@@ -24,7 +29,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
             ingested texts and 64 client threads through
             ``MicroBatcher.query``; checks recall of each query's own
             document, agreement with the plain search, and that serving
-            launched the kernels; then a per-stage breakdown of one query
+            launched the kernels; a second ``KnnShard(precision="default")``
+            restored from the index's ``snapshot_state`` and a
+            ``QueryEngine`` over it serve the same 256 texts: hits equal to
+            its plain version, scores within 1.1e-3 of the "highest"
+            engine's, both engines' p50 and the partial launch alone on the
+            same embeddings; then a per-stage breakdown of one query
             and one ingest batch and a ``torch.profiler`` trace of them
             (device time by kernel, busy share). The device plane is armed
             throughout: ``device_recompiles_total`` at ``encoder.forward``
@@ -55,8 +65,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
             removed, one exact three-way tie across shards); queries at
             Q = 1 / 32 / 256, k = 10 and Q = 32, k = 1024 under
             ``PATHWAY_INDEX_MERGE=gather`` and ``tree`` must give ids and
-            scores bit-identical to the single shard; median search ms
-            (CUDA events) of both, the device part alone, and the launches;
+            scores bit-identical to the single shard; the same two indexes
+            switched to precision "default" at Q = 32, k = 10, bit for bit
+            again; median search ms (CUDA events) of both, the device part
+            alone, and the launches;
 7. snapshot the filled 2^20-row ``KnnShard`` under a filesystem persistence
             backend: cut 1 (the full segment), 10,486 rows removed and
             10,486 new keys added, cut 2 (a delta segment of at most 2 % of
@@ -233,6 +245,21 @@ TR_CHECK_PAIRS = 8
 SP_DOCS = 4096
 SP_TOPICS = 16
 SP_TIMEOUT_S = 300
+# the one-pass instance against its plain version (the fp32 product of the
+# TF32-rounded operands) on unit rows at d = 384: every product is exact in
+# fp32, so the two differ only in the order of their sums. Summing the 384
+# products one after another is off by at most 383 * 2^-24 of sum|q_i x_i|
+# (<= 1 on unit rows). The kernel's chains are longest in its 64-query
+# instance (Q >= 33, the main path's Q = 256), whose 4 wgmmas a stage go to
+# 2 accumulators: 16 products on one accumulator (15 truncating adds,
+# 2^-23 each), 1 add of the two and 11 of the 12 stages: (383 + 42) * 2^-24
+# = 2.53e-5 < 3e-5 (the 8..32-query instances, one wgmma an accumulator:
+# (383 + 28) * 2^-24). Slots are held where the plain gap exceeds twice that.
+TF32_ERR = 3e-5
+# the "default" engine against the "highest" one: each operand's TF32
+# rounding moves a unit-vector score by at most 2^-10 * sum|q_i x_i| <=
+# 9.8e-4, and the sums' order by the bound above
+TF32_VS_FP32 = 1.1e-3
 # the rerank phase: the cross-encoder behind the KNN kernel's candidates.
 # k = 8 is examples/adaptive-rag/app.yaml's largest document count
 # (2 * 2^(3 - 1)) and 2 kept its n_starting_documents; the queries are
@@ -342,15 +369,77 @@ def profiled_ms(fn, name: str, reps: int = 1) -> float:
     ) / reps
 
 
-def phase_kernels(fk, topk, peaks, seed: int):
-    """Each kernel against its plain version at the main path's shapes."""
+def kernel_case_default(fk, topk, rates, q, db, valid, mask, k, rows, splits,
+                        tie_slots):
+    """One kernels-phase case at precision "default": the partial kernel's
+    one-pass instance against its plain version, the merge of its partials
+    bit for bit, the pair's tie to the lower slot; times beside the bound
+    and a TF32 library yardstick."""
+    import torch
+
+    Q = q.shape[0]
+    p = {"precision": "default"}
+    part_v, part_i = fk.knn_partial(q, db, valid, k, rows, **p)
+    plain_pv, plain_pi = fk.knn_partial_plain(q, db, valid, k + 1, rows, **p)
+    merged_v, merged_i = fk.topk_merge(part_v, part_i, k)
+    plain_mv, plain_mi = fk.topk_merge_plain(part_v, part_i, k)
+    vals, idx = fk.fused_topk_scores(q, db, valid, k, **p)
+    torch.cuda.synchronize()
+    if not torch.equal(merged_i, plain_mi) or not torch.equal(merged_v, plain_mv):
+        fail(f"topk_merge disagrees with its plain version at Q={Q}, k={k} (default)")
+    if not torch.equal(torch.isfinite(part_v), torch.isfinite(plain_pv[..., :k])):
+        fail(f"one-pass partials disagree on missing entries at Q={Q}, k={k}")
+    fin = torch.isfinite(plain_pv[..., :k])
+    err = torch.where(fin, (part_v - plain_pv[..., :k]).abs(), 0.0).max().item()
+    if not err <= TF32_ERR:
+        fail(f"one-pass partials off by {err} > {TF32_ERR} at Q={Q}, k={k}")
+    gap = plain_pv[..., :-1] - plain_pv[..., 1:]
+    inf = torch.full_like(gap[..., :1], float("inf"))
+    clear = (torch.minimum(torch.cat([inf, gap[..., :k - 1]], -1), gap) > 2 * TF32_ERR) & fin
+    if not torch.equal(part_i[clear], plain_pi[..., :k][clear]):
+        fail(f"one-pass slots disagree at Q={Q}, k={k} on "
+             f"{int((part_i != plain_pi[..., :k])[clear].sum())} entries")
+    if vals.shape != (Q, k) or not torch.isfinite(vals).all():
+        fail(f"fused_topk_scores (default) gave bad values at Q={Q}, k={k}")
+    if idx[0, :3].tolist() != list(tie_slots) or not bool((vals[0, :3] == vals[0, 0]).all()):
+        fail(f"one-pass tie not broken to the lower slot at Q={Q}, k={k}: "
+             f"{idx[0, :3].tolist()}")
+
+    ms = cuda_ms(lambda: fk.knn_partial(q, db, valid, k, rows, **p), reps=10)
+    pair_ms = cuda_ms(lambda: fk.fused_topk_scores(q, db, valid, k, **p), reps=10)
+    plain_ms = cuda_ms(lambda: fk.knn_partial_plain(q, db, valid, k, rows, **p), reps=3)
+    # the yardstick: one TF32 product and torch.topk, never called by the port
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        library_ms = cuda_ms(lambda: torch.topk(q @ db.T + mask, k), reps=3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    bound_s, bound_by = fk.fused_knn_bound(Q, db.shape[0], db.shape[1], k, "default",
+                                           rates, splits)
+    return {
+        "phase": "kernels", "precision": "default", "Q": Q, "cap": db.shape[0],
+        "d": db.shape[1], "k": k, "splits": splits, "rows_per_split": rows,
+        "ring_stages": fk.plan_tile(Q, k, "default").stages,
+        "smem_buffers": fk.plan_tile(Q, k, "default").smem_buffers,
+        "fused_knn_tf32_ms": ms, "fused_knn_tf32_plain_ms": plain_ms,
+        "fused_knn_tf32_bound_ms": 1e3 * bound_s,
+        "fused_knn_tf32_bound_share": 1e3 * bound_s / ms,
+        "fused_knn_tf32_bound_by": bound_by,
+        "fused_knn_tf32_max_abs_err": err,
+        "search_ms": pair_ms, "library_tf32_ms": library_ms,
+    }
+
+
+def phase_kernels(fk, topk, rates, seed: int):
+    """Each kernel against its plain version at the main path's shapes, the
+    partial kernel at both precisions."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     db = unit_rows(gen, CAP, DIM)
     valid = torch.rand(CAP, generator=gen, device="cuda") > 0.01
     tie_slots = (1000, CAP // 2, CAP - 1)
-    bw, fp32_peak, tf32_peak = peaks
+    bw, fp32_peak = rates["bandwidth"], rates["fp32"]
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     rows_out = {}
     for Q, k in CASES:
@@ -439,13 +528,11 @@ def phase_kernels(fk, topk, peaks, seed: int):
         # the operations at peak -- the lesser of FP32 on the CUDA cores and
         # 3xTF32 (three TF32 products) on the tensor cores -- whichever is
         # larger
-        in_bytes = 4.0 * CAP * DIM + 4.0 * Q * DIM + CAP
+        bound_s, bound_by = fk.fused_knn_bound(Q, CAP, DIM, k, "highest", rates, splits)
+        bound_ms = 1e3 * bound_s
+        fp32_bound_s, _ = fk.fused_knn_bound(Q, CAP, DIM, k, "highest", rates, splits,
+                                             fp32_only=True)
         part_bytes = 8.0 * splits * Q * k
-        t_bytes = (in_bytes + part_bytes) / bw
-        flops = 2.0 * Q * CAP * DIM
-        t_fp32 = flops / fp32_peak
-        t_ops = min(t_fp32, 3.0 * flops / tf32_peak)
-        bound_ms = 1e3 * max(t_bytes, t_ops)
         merge_bound_ms = 1e3 * (part_bytes + 8.0 * Q * k) / bw
         cm_flops, cm_bytes = fk.fused_knn_cost(Q, CAP, DIM, k, 1024)
         row = {
@@ -459,8 +546,8 @@ def phase_kernels(fk, topk, peaks, seed: int):
             "fused_knn_ms": ms, "fused_knn_plain_ms": plain_ms,
             "fused_knn_bound_ms": bound_ms,
             "fused_knn_bound_share": bound_ms / ms,
-            "fused_knn_bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "fused_knn_fp32_bound_ms": 1e3 * max(t_bytes, t_fp32),
+            "fused_knn_bound_by": bound_by,
+            "fused_knn_fp32_bound_ms": 1e3 * fp32_bound_s,
             "fused_knn_max_abs_err": part_err,
             "topk_merge_ms": merge_ms, "topk_merge_plain_ms": plain_merge_ms,
             "topk_merge_bound_ms": merge_bound_ms,
@@ -476,9 +563,14 @@ def phase_kernels(fk, topk, peaks, seed: int):
             # the same launch under torch.profiler, beside the CUDA events
             row["fused_knn_profiler_ms"] = profiled_ms(
                 lambda: fk.knn_partial(q, db, valid, k, rows), "partial_kernel")
+        row["precision"] = "highest"
         emit(row)
         rows_out[(Q, k)] = row
         del part_v, part_i, plain_pv, plain_pi
+        row = kernel_case_default(fk, topk, rates, q, db, valid, mask, k, rows,
+                                  splits, tie_slots)
+        emit(row)
+        rows_out[(Q, k, "default")] = row
     del db, valid
     torch.cuda.empty_cache()
     return rows_out
@@ -552,16 +644,16 @@ def write_checkpoint(path: str, cfg, seed: int) -> dict:
     return params
 
 
-def agree_with_plain(res, pv, pi, slot_to_key, k) -> int:
+def agree_with_plain(res, pv, pi, slot_to_key, k, clear_by: float = 1e-5) -> int:
     """Queries whose served top-k has the plain search's key at every rank
-    whose score stands 1e-5 clear of its neighbours (the kernels phase's
-    rule); ``pv``/``pi`` are the plain top-(k + 1) on the host."""
+    whose score stands ``clear_by`` clear of its neighbours (the kernels
+    phase's rule); ``pv``/``pi`` are the plain top-(k + 1) on the host."""
     agree = 0
     for r, v, i in zip(res, pv, pi):
         want = [slot_to_key[int(s)] for s in i[:k]]
         got = [key for key, _ in r]
         gap = v[:-1] - v[1:]
-        clear = np.minimum(np.r_[np.inf, gap[:k - 1]], gap) > 1e-5
+        clear = np.minimum(np.r_[np.inf, gap[:k - 1]], gap) > clear_by
         agree += len(got) == k and all(g == w for g, w, c in zip(got, want, clear) if c)
     return agree
 
@@ -744,6 +836,7 @@ def phase_main(pt, fk, ckpt: str, written: dict, seed: int):
     if errors or any(t.is_alive() for t in threads):
         fail(f"MicroBatcher clients failed: {errors[:1]}")
     mb_recall = float(np.mean(client_hits))
+    default_row = serve_default(pt, fk, enc, shard, engine, texts, qi, res, lat)
     torch.cuda.synchronize()
     launches = dict(fk.LAUNCHES)
 
@@ -769,6 +862,7 @@ def phase_main(pt, fk, ckpt: str, written: dict, seed: int):
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "native": native_status(),
     })
+    emit(default_row)
     if recall < RECALL_MIN or mb_recall < RECALL_MIN:
         fail(f"recall of the own document {recall} / {mb_recall} < {RECALL_MIN}")
     if not all(launches.values()):
@@ -792,6 +886,82 @@ def phase_main(pt, fk, ckpt: str, written: dict, seed: int):
             fail(f"{site}: {recompiles.get(site)} recompiles noted, "
                  f"{graphs.get(site)} CUDA graphs captured")
     return launches, enc
+
+
+def serve_default(pt, fk, enc, shard, engine, texts, qi, res, lat):
+    """The main index at precision "default": a second ``KnnShard`` restored
+    from its ``snapshot_state`` (no re-embedding) and a ``QueryEngine`` over
+    it serve the same texts. Its hits must agree with its plain version on
+    the card, and its scores rank by rank with the "highest" engine's
+    within ``TF32_VS_FP32``. Returns the phase's ``main_default`` line."""
+    import torch
+
+    t0 = time.perf_counter()
+    fast = pt.KnnShard(shard.dimension, "cos", precision="default", capacity=CAP)
+    fast.load_state(shard.snapshot_state())
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if len(fast) != len(shard):
+        fail(f"the restored index holds {len(fast)} rows, not {len(shard)}")
+    before = dict(fk.LAUNCHES)
+    eng = pt.QueryEngine(enc, fast, k=K)
+    eng.query(texts[:8])  # first launch of this batch shape
+    fast_lat = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        got = eng.query(texts)
+        fast_lat.append(1e3 * (time.perf_counter() - t0))
+    if len(got) != len(texts) or any(len(r) != K for r in got) or not all(
+            np.isfinite(sc) for r in got for _, sc in r):
+        fail("the default engine returned wrong or non-finite hits")
+    recall = float(np.mean([f"doc{i}" in [key for key, _ in r] for i, r in zip(qi, got)]))
+    emb = enc.encode_device(texts).float().contiguous()
+    pv, pi = pt.chunked_topk_scores(emb, fast.vectors, fast.valid, K + 1,
+                                    precision="default")
+    agree = agree_with_plain(got, pv.cpu().numpy(), pi.cpu().numpy(),
+                             fast.slot_to_key, K, clear_by=2 * TF32_ERR)
+    if agree != len(texts):
+        fail(f"the default engine disagrees with its plain version on "
+             f"{len(texts) - agree} queries")
+    vs_highest = max(abs(a - b) for r, w in zip(got, res)
+                     for (_, a), (_, b) in zip(r, w))
+    if not vs_highest <= TF32_VS_FP32:
+        fail(f"default scores {vs_highest} from the highest engine's > {TF32_VS_FP32}")
+    # the default engine's own queries ran the one-pass instance alone
+    torch.cuda.synchronize()
+    served = dict(fk.LAUNCHES)
+    own = {name: served[name] - before[name] for name in served}
+    if not own["fused_knn_tf32"] or own["fused_knn"]:
+        fail(f"the default engine's queries launched {own}")
+    # the partial kernel alone on these embeddings, both instances; these
+    # launches time the kernel and are not the path's: the counts are put
+    # back after them
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, _ = fk.plan_splits(emb.shape[0], CAP, K, n_sm)
+    partial_ms = {
+        prec: cuda_ms(lambda: fk.knn_partial(emb, idx.vectors, idx.valid, K, rows,
+                                             precision=prec), reps=10)
+        for prec, idx in (("highest", shard), ("default", fast))
+    }
+    torch.cuda.synchronize()
+    fk.LAUNCHES.update(served)
+    row = {
+        "phase": "main_default", "precision": "default", "live_rows": len(fast),
+        "restore_s": restore_s, "query_batch": len(texts),
+        "query_batch_ms": fast_lat,
+        "query_batch_ms_p50": float(np.median(fast_lat)),
+        "highest_query_batch_ms_p50": float(np.median(lat)),
+        "recall_own_doc_top10": recall, "agree_with_plain": agree,
+        "max_abs_vs_highest": vs_highest,
+        "launches": own,
+        "knn_partial_own_data_ms": partial_ms,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    if recall < RECALL_MIN:
+        fail(f"default engine recall {recall} < {RECALL_MIN}")
+    del eng, fast
+    torch.cuda.empty_cache()
+    return row
 
 
 def breakdown(pipe, engine, docs, keys, texts):
@@ -1500,6 +1670,21 @@ def phase_sharded(pt, fk, seed: int):
                      f"k={k}, query {bad}: {got[bad][:3]} vs {want[bad][:3]}")
             if [key for key, _ in got[0][:3]] != tie_order:
                 fail(f"the three-way tie is not in key_seq order at Q={Q}, k={k}")
+    # the same two indexes at precision "default" (the attribute each search
+    # reads): the one-pass instance per shard, bit for bit with one shard
+    _, _, q32, _ = next(c for c in cases if c[:2] == (32, K))
+    sharded.precision = single.precision = "default"
+    try:
+        want_d = single.search(q32, K)
+        for merge in ("gather", "tree"):
+            os.environ["PATHWAY_INDEX_MERGE"] = merge
+            if sharded.search(q32, K) != want_d:
+                fail(f"sharded ({merge}) differs from the single shard at precision "
+                     f"default, Q=32, k={K}")
+        if [key for key, _ in want_d[0][:3]] != tie_order:
+            fail("the three-way tie is not in key_seq order at precision default")
+    finally:
+        sharded.precision = single.precision = "highest"
     torch.cuda.synchronize()
     launches = dict(fk.LAUNCHES)
 
@@ -1523,11 +1708,12 @@ def phase_sharded(pt, fk, seed: int):
         "phase": "sharded", "shards": SHARDS, "live_rows": len(sharded),
         "local_cap": sharded.local_cap, "rows_used": sharded.rows_used,
         "shard_fill": sharded.shard_fill(), "fill_s": fill,
-        "searches": rows_out, "bit_identical": True, "launches": launches,
+        "searches": rows_out, "bit_identical": True,
+        "default_bit_identical": {"Q": 32, "k": K}, "launches": launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     })
-    if not launches.get("fused_knn") or not launches.get("topk_merge"):
-        fail(f"the sharded searches did not launch both kernels: {launches}")
+    if not all(launches.get(n) for n in ("fused_knn", "fused_knn_tf32", "topk_merge")):
+        fail(f"the sharded searches did not launch every kernel: {launches}")
     del sharded
     torch.cuda.empty_cache()
     return launches, single
@@ -1601,7 +1787,7 @@ def phase_snapshot(pt, fk, single, seed: int):
     emit(row)
     if share > 0.02:
         fail(f"the delta cut wrote {share:.4f} of the full cut's bytes (> 2 %)")
-    if not all(row["launches"].values()):
+    if not row["launches"].get("fused_knn") or not row["launches"].get("topk_merge"):
         fail(f"the restored searches did not launch both kernels: {row['launches']}")
     return row["launches"]
 
@@ -2447,6 +2633,8 @@ def phase_doctor(pt, fk, ckpt: str, seed: int, df_runtime):
         "verdict": report.verdict, "chains": report.chains,
         "predicted": {s: p["recompiles"] for s, p in report.predictions.items()},
         "hbm": report.hbm, "over_budget_verdict": mutant.verdict,
+        # the roofline of each predicted knn.fused plan on this card
+        "knn_fused_bound_ms": report.predictions["knn.fused"].get("bound_ms"),
         "launches_moved": after[0] != before[0],
         "allocated_moved_bytes": after[1][0] - before[1][0],
         "bytes_allocated_during": after[1][1] - before[1][1],
@@ -2617,13 +2805,12 @@ def main() -> int:
 
     smi = phase_build(_build)
     kind = torch.cuda.get_device_name(0)
-    # data-sheet peaks: (bytes/s, FP32 FLOP/s outside the tensor cores,
-    # dense TF32 FLOP/s on the tensor cores)
+    # data-sheet peaks: bytes/s, FP32 FLOP/s outside the tensor cores,
+    # dense TF32 FLOP/s on the tensor cores
     rates = peak_rates(kind)
     if rates is None:
         fail(f"no data-sheet peaks for {kind!r} in internals/device.py")
-    peaks = (rates["bandwidth"], rates["fp32"], rates["tf32"])
-    kern = phase_kernels(fk, topk, peaks, args.seed)
+    kern = phase_kernels(fk, topk, rates, args.seed)
     ckpt = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"), "bge-small")
     written = write_checkpoint(ckpt, pt.EncoderConfig.bge_small(), args.seed + CKPT_SEED)
     main_launches, enc = phase_main(pt, fk, ckpt, written, args.seed)
@@ -2651,6 +2838,7 @@ def main() -> int:
     launches = {k: sum(p.get(k, 0) for p in per_phase) for k in fk.LAUNCHES}
 
     main_q = kern[(256, K)]
+    main_d = kern[(256, K, "default")]
     src = "pathway_tpu_torch/csrc/fused_knn.cu"
     replaces = "pathway_tpu/ops/pallas_knn.py:34"
     emit({"kernels": [
@@ -2661,6 +2849,15 @@ def main() -> int:
          "bound_ms": main_q["fused_knn_bound_ms"],
          "bound_by": main_q["fused_knn_bound_by"],
          "library_ms": main_q["library_ms"]},
+        # the partial kernel's one-pass TF32 instance (precision "default");
+        # its yardstick is the library product in TF32
+        {"name": "fused_knn_tf32", "route": "cuda", "source": src, "replaces": replaces,
+         "launches": launches["fused_knn_tf32"],
+         "max_abs_err": main_d["fused_knn_tf32_max_abs_err"],
+         "ms": main_d["fused_knn_tf32_ms"], "plain_ms": main_d["fused_knn_tf32_plain_ms"],
+         "bound_ms": main_d["fused_knn_tf32_bound_ms"],
+         "bound_by": main_d["fused_knn_tf32_bound_by"],
+         "library_ms": main_d["library_tf32_ms"]},
         # the merge's times are device times (torch.profiler): launched
         # back to back, it and its yardstick time the host's launch path
         {"name": "topk_merge", "route": "cuda", "source": src, "replaces": replaces,

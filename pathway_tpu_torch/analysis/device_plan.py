@@ -82,7 +82,8 @@ class WorkloadSpec:
     """The declared steady-state workload the retrace/HBM checks analyze
     under. ``ingest_batches`` are (rows, token_len) per fused-ingest
     dispatch; ``write_batches`` are direct index-write row counts;
-    queries arrive in ``query_batches`` sizes asking ``ks`` neighbors.
+    queries arrive in ``query_batches`` sizes asking ``ks`` neighbors,
+    searched at ``precision`` ("highest" or "default", the shard's).
     ``bounded=False`` declares the batch/shape distribution unbounded —
     exactly the retrace-storm defect the audit refuses."""
 
@@ -96,6 +97,12 @@ class WorkloadSpec:
     chunk: int | None = None
     depth: int = 2                # tokenize-ahead staging depth
     bounded: bool = True
+    precision: str = "highest"
+
+    def __post_init__(self):
+        from pathway_tpu_torch.ops.topk import check_precision
+
+        check_precision(self.precision)
 
 
 # -- report ------------------------------------------------------------------
@@ -135,6 +142,7 @@ class DevicePlanReport:
                     **({"measured_recompiles": p["measured_recompiles"],
                         "drift": p["drift"]}
                        if "drift" in p else {}),
+                    **({"bound_ms": p["bound_ms"]} if "bound_ms" in p else {}),
                 }
                 for site, p in self.predictions.items()
             },
@@ -344,8 +352,9 @@ def simulate_knn_buckets(spec: WorkloadSpec) -> tuple[set, set]:
 def simulate_fused_buckets(spec: WorkloadSpec, dim: int) -> set:
     """The ``knn.fused`` launch-plan set: one launch of the kernel pair
     per search, keyed by the raw query rows, the index capacity after the
-    declared writes, the dimension and the clamped k — what
-    ``KnnShard.search`` and ``QueryEngine`` hand ``fused_topk_scores``."""
+    declared writes, the dimension, the clamped k and the precision —
+    what ``KnnShard.search`` and ``QueryEngine`` hand
+    ``fused_topk_scores``."""
     from pathway_tpu_torch.internals.device import (
         fused_knn_bucket, knn_search_bucket,
     )
@@ -353,9 +362,26 @@ def simulate_fused_buckets(spec: WorkloadSpec, dim: int) -> set:
     _, sb = simulate_knn_buckets(spec)
     cap = max((c for _, c, _ in sb), default=spec.initial_capacity)
     return {
-        fused_knn_bucket(q, cap, dim, knn_search_bucket(q, cap, k, spec.chunk)[2])
+        fused_knn_bucket(q, cap, dim, knn_search_bucket(q, cap, k, spec.chunk)[2],
+                         spec.precision)
         for q in spec.query_batches for k in spec.ks
     }
+
+
+def fused_bounds(buckets: set, rates: dict | None) -> list:
+    """The ``knn.fused`` roofline of each predicted launch plan: ``[q,
+    cap, d, k, precision, least ms, "bytes" or "operations"]`` on a card
+    whose data-sheet peaks ``rates`` are (``peak_rates``; none without
+    one) -- 3 TF32 passes for "highest", 1 for "default"."""
+    if rates is None:
+        return []
+    from pathway_tpu_torch.ops.fused_knn import fused_knn_bound
+
+    out = []
+    for b in sorted(buckets):
+        secs, by = fused_knn_bound(*b, rates)
+        out.append([*b, 1e3 * secs, by])
+    return out
 
 
 def simulate_sharded_buckets(
@@ -555,7 +581,7 @@ def analyze_device_plan(
     if sb:
         qn, scap, k_eff = max(sb)
         _host_sync_check(
-            lambda q, v, m, s: search_topk(q, v, m, s, k_eff, "dot"),
+            lambda q, v, m, s: search_topk(q, v, m, s, k_eff, "dot", spec.precision),
             (meta((qn, d_model), f32), *triple(scap)),
             "knn.search", knn_where + ":search_topk", diags,
         )
@@ -647,11 +673,15 @@ def analyze_device_plan(
     # -- chain: knn.fused (retrace model only — the kernel pair is bound
     # through ctypes and does not trace; its plain twin is knn.search's) --
     mark = len(diags)
+    fused = simulate_fused_buckets(spec, d_model)
     _retrace_audit(
-        spec, "knn.fused", simulate_fused_buckets(spec, d_model),
+        spec, "knn.fused", fused,
         "pathway_tpu_torch/ops/fused_knn.py:fused_topk_scores", diags,
         predictions,
     )
+    bounds = fused_bounds(fused, dev.peak_rates())
+    if bounds:
+        predictions["knn.fused"]["bound_ms"] = bounds
     chains["fused"] = chain_verdict(mark)
 
     # -- static device-memory budget ----------------------------------------

@@ -46,13 +46,12 @@ class NBStrictError(RuntimeError):
     instead of degrading silently."""
 
 
-def env_flag(name: str) -> bool:
-    """Boolean env knob: '', '0', 'false', 'no' are off (a plain
-    truthiness check would treat PATHWAY_NO_NB_JOIN=0 as ON — the typo
-    class the knob registry exists to catch)."""
-    return os.environ.get(name, "").strip().lower() not in (
-        "", "0", "false", "no",
-    )
+def env_flag(name: str, default: bool = False) -> bool:
+    """Boolean env knob: unset or '' is ``default``; '0', 'false', 'no'
+    are off (a plain truthiness check would treat PATHWAY_NO_NB_JOIN=0 as
+    ON — the typo class the knob registry exists to catch)."""
+    raw = os.environ.get(name, "").strip().lower()
+    return default if raw == "" else raw not in ("0", "false", "no")
 
 
 def nb_join_forced_off() -> bool:

@@ -155,6 +155,12 @@ KNOBS: dict[str, Knob] = {
            "producer may stage ahead of the device. 1 degrades to "
            "strict alternation; 2 is classic double buffering.",
            lo=1, hi=64),
+        _k("PATHWAY_INGEST_STAGE_H2D", "bool", True,
+           "Start the next ingest batch's host-to-device token copy from "
+           "pinned memory on a side stream in the producer thread, so it "
+           "overlaps the previous batch's fused chain; 0 stages host "
+           "tensors only and copies each batch at dispatch on the compute "
+           "stream."),
         _k("PATHWAY_INDEX_SHARDS", "int", None,
            "Back vector-index adapters with the sharded index over an "
            "N-card data-parallel mesh (one corpus shard per card, queries "

@@ -46,10 +46,21 @@
 //                      each stage's sum to the score: the tensor cores' own
 //                      additions truncate, and short chains keep that
 //                      within the accuracy of fp32 (Precision.HIGHEST).
-//                      Plain TF32 is never used. At small NQ a wgmma's
-//                      issue costs about the same whatever its width, and a
-//                      stage takes 12: that, not the bytes, bounds what one
-//                      CTA streams, hence the parts at large k.
+//                      The hardware's own TF32 conversion (truncation) is
+//                      never used. At small NQ a wgmma's issue costs about
+//                      the same whatever its width, and a stage takes 12:
+//                      that, not the bytes, bounds what one CTA streams,
+//                      hence the parts at large k.
+//     one pass         precision "default" (PASSES = 1, the other template
+//                      instance): the queries' hi part alone (no lo in the
+//                      scratch copy, the ring or the stage), A rounded to
+//                      TF32 by tf32_rna, and the four hi*hi wgmmas of a
+//                      stage instead of twelve. A product of two TF32
+//                      values is exact in fp32, so the instance computes
+//                      the fp32 product of the TF32-rounded operands up to
+//                      the order of its sums: a unit-vector score within
+//                      2^-10 * sum|q_i x_i| of the fp32 one. Selection,
+//                      epilogue and the merge are those of PASSES = 3.
 //     selection        the epilogue applies the valid mask and the l2sq
 //                      form 2s - |q|^2 - |x|^2 and drops every score at or
 //                      below its query's running k-th; the rest are
@@ -99,10 +110,11 @@
 // Bound on an H100 SXM: the database read, 4*cap*d bytes at 3.35 TB/s
 // (0.48 ms at cap=2^20, d=384), or, when Q is large, the lesser of the
 // 2*Q*cap*d FP32 operations at 67 TFLOP/s and the 3 x 2*Q*cap*d TF32
-// operations at 495 TFLOP/s (1.25 ms at Q=256).
+// operations at 495 TFLOP/s (1.25 ms at Q=256); with one pass, the
+// 2*Q*cap*d TF32 operations (0.42 ms at Q=256, under the read).
 //
 // Limits: 1 <= k <= 8192, d % 4 == 0, 16-byte aligned rows, splits*kp <=
-// 32768 merge candidates.
+// 32768 merge candidates, PASSES in {1, 3}.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -135,14 +147,19 @@ constexpr unsigned FULL = 0xffffffffu;
 // one tile's rows
 int capacity(int k) { return (k + (k > TM ? k : TM) + TM + 31) / 32 * 32; }
 
-size_t stage_bytes(int nq) { return (size_t)(TM + 2 * nq) * ROW_BYTES; }
+// query parts a stage carries: hi and lo for 3xTF32, hi alone for one pass
+__host__ __device__ constexpr int query_parts(int passes) { return passes == 3 ? 2 : 1; }
+
+size_t stage_bytes(int nq, int passes) {
+  return (size_t)(TM + query_parts(passes) * nq) * ROW_BYTES;
+}
 
 // 1 KB to align the ring, the ring, the mbarriers, |q|^2, the running
 // thresholds and counts, each consumer warp's room for its selects (a
 // radix histogram, then the keys it sorts aside), and the candidate
 // buffers when they live in shared memory
-size_t partial_smem_bytes(int nq, int stages, int k, bool smem_buffers) {
-  return 1024 + (size_t)stages * stage_bytes(nq) + 16 * MAX_STAGES + 12 * (size_t)nq +
+size_t partial_smem_bytes(int nq, int stages, int k, bool smem_buffers, int passes) {
+  return 1024 + (size_t)stages * stage_bytes(nq, passes) + 16 * MAX_STAGES + 12 * (size_t)nq +
          (size_t)CONSUMER_WARPS * SELECT_ROOM +
          (smem_buffers ? (size_t)8 * nq * capacity(k) : 0);
 }
@@ -313,13 +330,15 @@ template <> struct Wgmma<64> {
   }
 };
 
+// the queries' TF32 parts: hi and lo for 3xTF32, hi alone for one pass
+template <int PASSES>
 __global__ void split_kernel(const float* __restrict__ q, float* __restrict__ qs, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) {
     uint32_t hi, lo;
     split_tf32(q[i], hi, lo);
     qs[i] = __uint_as_float(hi);
-    qs[n + i] = __uint_as_float(lo);
+    if constexpr (PASSES == 3) qs[n + i] = __uint_as_float(lo);
   }
 }
 
@@ -513,7 +532,7 @@ __device__ __noinline__ float warp_select(unsigned long long* b, int n, int k, u
   return fvalue(low);
 }
 
-template <int NQ>
+template <int NQ, int PASSES>
 __global__ void __launch_bounds__(THREADS, 1)
 partial_kernel(const __grid_constant__ CUtensorMap db_map, const __grid_constant__ CUtensorMap q_map,
                const float* __restrict__ q, const unsigned char* __restrict__ valid,
@@ -524,8 +543,10 @@ partial_kernel(const __grid_constant__ CUtensorMap db_map, const __grid_constant
   constexpr int M = NQ / 2;  // accumulator registers a thread: 64 rows x NQ / 128
   // independent accumulator sets a stage: as many as fit beside the score
   // and the A fragments
-  constexpr int J = NQ <= 16 ? 12 : (NQ == 32 ? 6 : 2);
-  constexpr uint32_t STAGE = (TM + 2 * NQ) * ROW_BYTES;
+  // (a stage issues 3 * 4 wgmmas with three passes, 4 with one)
+  constexpr int J3 = NQ <= 16 ? 12 : (NQ == 32 ? 6 : 2);
+  constexpr int J = PASSES == 3 ? J3 : (J3 < 4 ? J3 : 4);
+  constexpr uint32_t STAGE = (TM + query_parts(PASSES) * NQ) * ROW_BYTES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // aligned to 1 KB (the 128-byte swizzle's atom) by pointer arithmetic, not
   // through an integer, so that every pointer below stays a shared-memory
@@ -588,7 +609,8 @@ partial_kernel(const __grid_constant__ CUtensorMap db_map, const __grid_constant
         const uint32_t dst = ring_s + s * STAGE;
         tma_load_2d(dst, &db_map, d0, row0, full_bar(s), stream_policy);
         tma_load_3d(dst + TM * ROW_BYTES, &q_map, d0, q_base, 0, full_bar(s), keep_policy);
-        tma_load_3d(dst + (TM + NQ) * ROW_BYTES, &q_map, d0, q_base, 1, full_bar(s), keep_policy);
+        if constexpr (PASSES == 3)
+          tma_load_3d(dst + (TM + NQ) * ROW_BYTES, &q_map, d0, q_base, 1, full_bar(s), keep_policy);
         if (++s == stages) { s = 0; par ^= 1; }
       }
     }
@@ -605,9 +627,10 @@ partial_kernel(const __grid_constant__ CUtensorMap db_map, const __grid_constant
   int s = 0;
   uint32_t par = 0;
   // one stage into tt: its 12 wgmmas (lo*hi, hi*lo, hi*hi of each of four
-  // k-steps) go round-robin to J accumulators, each a short chain of the
-  // tensor cores' truncating additions; the J sums are added in IEEE fp32
-  // in a fixed order, the same for every row
+  // k-steps; with one pass the 4 hi*hi alone) go round-robin to J
+  // accumulators, each a short chain of the tensor cores' truncating
+  // additions; the J sums are added in IEEE fp32 in a fixed order, the
+  // same for every row
   auto stage_scores = [&](float (&tt)[M]) {
     mbar_wait(full_bar(s), par);
     const unsigned char* stage = ring + s * STAGE;
@@ -618,23 +641,32 @@ partial_kernel(const __grid_constant__ CUtensorMap db_map, const __grid_constant
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
       const int c0 = ((2 * ks) ^ g) << 4, c1 = ((2 * ks + 1) ^ g) << 4;
-      split_tf32(*reinterpret_cast<const float*>(arow + c0), ah[ks][0], al[ks][0]);
-      split_tf32(*reinterpret_cast<const float*>(arow + 8 * ROW_BYTES + c0), ah[ks][1], al[ks][1]);
-      split_tf32(*reinterpret_cast<const float*>(arow + c1), ah[ks][2], al[ks][2]);
-      split_tf32(*reinterpret_cast<const float*>(arow + 8 * ROW_BYTES + c1), ah[ks][3], al[ks][3]);
+      const float* x[4] = {reinterpret_cast<const float*>(arow + c0),
+                           reinterpret_cast<const float*>(arow + 8 * ROW_BYTES + c0),
+                           reinterpret_cast<const float*>(arow + c1),
+                           reinterpret_cast<const float*>(arow + 8 * ROW_BYTES + c1)};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (PASSES == 3) split_tf32(*x[i], ah[ks][i], al[ks][i]);
+        else ah[ks][i] = tf32_rna(__float_as_uint(*x[i]));
+      }
     }
     const uint64_t bh = smem_desc(smem_u32(stage + TM * ROW_BYTES));
-    const uint64_t bl = smem_desc(smem_u32(stage + (TM + NQ) * ROW_BYTES));
     float sums[J][M];
 #pragma unroll
     for (int j = 0; j < J; ++j) fence_regs(sums[j]);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
-      const int w = 3 * ks;  // small terms first
-      Wgmma<NQ>::mma(sums[w % J], al[ks], bh + 2 * ks, w >= J);
-      Wgmma<NQ>::mma(sums[(w + 1) % J], ah[ks], bl + 2 * ks, w + 1 >= J);
-      Wgmma<NQ>::mma(sums[(w + 2) % J], ah[ks], bh + 2 * ks, w + 2 >= J);
+      if constexpr (PASSES == 3) {
+        const uint64_t bl = smem_desc(smem_u32(stage + (TM + NQ) * ROW_BYTES));
+        const int w = 3 * ks;  // small terms first
+        Wgmma<NQ>::mma(sums[w % J], al[ks], bh + 2 * ks, w >= J);
+        Wgmma<NQ>::mma(sums[(w + 1) % J], ah[ks], bl + 2 * ks, w + 1 >= J);
+        Wgmma<NQ>::mma(sums[(w + 2) % J], ah[ks], bh + 2 * ks, w + 2 >= J);
+      } else {
+        Wgmma<NQ>::mma(sums[ks % J], ah[ks], bh + 2 * ks, ks >= J);
+      }
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -984,10 +1016,10 @@ EncodeTiled encode_tiled() {
 }
 
 // maps of the index [N, D] (boxes of 128 rows x 32 dims) and of the split
-// queries [2, Q, D] (boxes of nq queries x 32 dims of one part), both in
-// the 128-byte swizzle, out-of-bounds elements zero-filled
+// queries [parts, Q, D] (boxes of nq queries x 32 dims of one part), both
+// in the 128-byte swizzle, out-of-bounds elements zero-filled
 int encode_maps(CUtensorMap* db_map, CUtensorMap* q_map, const float* db, const float* qs, int N,
-                int Q, int D, int nq) {
+                int Q, int D, int nq, int parts) {
   EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorSymbolNotFound;
   const cuuint32_t one[3] = {1, 1, 1};
@@ -998,7 +1030,7 @@ int encode_maps(CUtensorMap* db_map, CUtensorMap* q_map, const float* db, const 
                    one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
-  const cuuint64_t q_dim[3] = {(cuuint64_t)D, (cuuint64_t)Q, 2};
+  const cuuint64_t q_dim[3] = {(cuuint64_t)D, (cuuint64_t)Q, (cuuint64_t)parts};
   const cuuint64_t q_stride[2] = {(cuuint64_t)D * 4, (cuuint64_t)Q * D * 4};
   const cuuint32_t q_box[3] = {DK, (cuuint32_t)nq, 1};
   r = enc(q_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, (void*)qs, q_dim, q_stride, q_box, one,
@@ -1007,25 +1039,25 @@ int encode_maps(CUtensorMap* db_map, CUtensorMap* q_map, const float* db, const 
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int NQ>
+template <int NQ, int PASSES>
 int launch_partial(const float* q, float* qs, const float* db, const unsigned char* valid,
                    const float* sq, int Q, int N, int D, int k, int l2sq, int rows_per_split,
                    int splits, int parts, int stages, unsigned long long* buf,
                    unsigned long long* mbuf, int* arrived, float* part_v, int* part_i,
                    cudaStream_t stream) {
-  const size_t smem = partial_smem_bytes(NQ, stages, k, buf == nullptr);
-  cudaError_t err = cudaFuncSetAttribute(partial_kernel<NQ>,
+  const size_t smem = partial_smem_bytes(NQ, stages, k, buf == nullptr, PASSES);
+  cudaError_t err = cudaFuncSetAttribute(partial_kernel<NQ, PASSES>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  split_kernel<<<(Q * D + 255) / 256, 256, 0, stream>>>(q, qs, Q * D);
+  split_kernel<PASSES><<<(Q * D + 255) / 256, 256, 0, stream>>>(q, qs, Q * D);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   CUtensorMap db_map, q_map;
-  const int e = encode_maps(&db_map, &q_map, db, qs, N, Q, D, NQ);
+  const int e = encode_maps(&db_map, &q_map, db, qs, N, Q, D, NQ, query_parts(PASSES));
   if (e) return e;
   dim3 grid((Q + NQ - 1) / NQ, splits * parts);
-  partial_kernel<NQ><<<grid, THREADS, smem, stream>>>(db_map, q_map, q, valid, sq, Q, N, D, k, l2sq,
-                                                       rows_per_split, parts, stages, capacity(k),
-                                                       buf, mbuf, arrived, part_v, part_i);
+  partial_kernel<NQ, PASSES><<<grid, THREADS, smem, stream>>>(
+      db_map, q_map, q, valid, sq, Q, N, D, k, l2sq, rows_per_split, parts, stages, capacity(k),
+      buf, mbuf, arrived, part_v, part_i);
   return (int)cudaGetLastError();
 }
 
@@ -1037,14 +1069,16 @@ int fused_knn_k_max() { return K_MAX; }
 int fused_knn_row_granule() { return ROW_GRANULE; }
 int fused_knn_merge_max() { return MERGE_MAX; }
 int fused_knn_capacity(int k) { return capacity(k); }
-long long fused_knn_partial_smem(int nq, int stages, int k, int smem_buffers) {
-  return (long long)partial_smem_bytes(nq, stages, k, smem_buffers != 0);
+long long fused_knn_partial_smem(int nq, int stages, int k, int smem_buffers, int passes) {
+  return (long long)partial_smem_bytes(nq, stages, k, smem_buffers != 0, passes);
 }
 
-// All pointers are device pointers; `stream` is a cudaStream_t. `nq` is the
-// instance (8, 16, 32 or 64 queries a CTA), `parts` the CTAs that share a
+// All pointers are device pointers; `stream` is a cudaStream_t. `nq` and
+// `passes` pick the instance (8, 16, 32 or 64 queries a CTA; 3 TF32 passes
+// for precision "highest", 1 for "default"), `parts` the CTAs that share a
 // split's rows (at most 8, parts * k <= 32768), `stages` the ring depth
-// (4..8); `qs` is [2, Q, D] f32 scratch for the split queries; `buf` is
+// (4..8); `qs` is [2, Q, D] f32 scratch for the split queries (hi and lo;
+// [1, Q, D], hi alone, with one pass); `buf` is
 // [ceil(Q/nq) * splits * parts, nq, capacity(k)] 64-bit scratch for the
 // candidate buffers, or null to keep them in shared memory; with parts > 1
 // `mbuf` is [ceil(Q/nq) * splits, nq, parts * k] 64-bit scratch for the
@@ -1052,23 +1086,31 @@ long long fused_knn_partial_smem(int nq, int stages, int k, int smem_buffers) {
 // launch's cudaError_t (0 on success).
 int fused_knn_partial(const float* q, float* qs, const float* db, const unsigned char* valid,
                       const float* sq, int Q, int N, int D, int k, int l2sq,
-                      int rows_per_split, int splits, int parts, int nq, int stages,
+                      int rows_per_split, int splits, int parts, int nq, int stages, int passes,
                       unsigned long long* buf, unsigned long long* mbuf, int* arrived,
                       float* part_v, int* part_i, void* stream) {
   if (k < 1 || k > K_MAX || D % 4 || rows_per_split % ROW_GRANULE || parts < 1 ||
       parts > MAX_PARTS || (long long)parts * k > MERGE_MAX || (parts > 1 && (!mbuf || !arrived)) ||
-      stages < MIN_STAGES ||
-      stages > MAX_STAGES || partial_smem_bytes(nq, stages, k, buf == nullptr) > (size_t)SMEM_MAX ||
-      (size_t)stages * stage_bytes(nq) < 8 * (size_t)pow2_at_least(k))
+      stages < MIN_STAGES || stages > MAX_STAGES ||
+      partial_smem_bytes(nq, stages, k, buf == nullptr, passes) > (size_t)SMEM_MAX ||
+      (size_t)stages * stage_bytes(nq, passes) < 8 * (size_t)pow2_at_least(k))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (nq) {
-    case 8: return launch_partial<8>(q, qs, db, valid, sq, Q, N, D, k, l2sq, rows_per_split, splits, parts, stages, buf, mbuf, arrived, part_v, part_i, s);
-    case 16: return launch_partial<16>(q, qs, db, valid, sq, Q, N, D, k, l2sq, rows_per_split, splits, parts, stages, buf, mbuf, arrived, part_v, part_i, s);
-    case 32: return launch_partial<32>(q, qs, db, valid, sq, Q, N, D, k, l2sq, rows_per_split, splits, parts, stages, buf, mbuf, arrived, part_v, part_i, s);
-    case 64: return launch_partial<64>(q, qs, db, valid, sq, Q, N, D, k, l2sq, rows_per_split, splits, parts, stages, buf, mbuf, arrived, part_v, part_i, s);
+#define PARTIAL(NQ_, P_)                                                                       \
+  launch_partial<NQ_, P_>(q, qs, db, valid, sq, Q, N, D, k, l2sq, rows_per_split, splits, parts, \
+                          stages, buf, mbuf, arrived, part_v, part_i, s)
+  switch (nq * 4 + passes) {
+    case 8 * 4 + 3: return PARTIAL(8, 3);
+    case 16 * 4 + 3: return PARTIAL(16, 3);
+    case 32 * 4 + 3: return PARTIAL(32, 3);
+    case 64 * 4 + 3: return PARTIAL(64, 3);
+    case 8 * 4 + 1: return PARTIAL(8, 1);
+    case 16 * 4 + 1: return PARTIAL(16, 1);
+    case 32 * 4 + 1: return PARTIAL(32, 1);
+    case 64 * 4 + 1: return PARTIAL(64, 1);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef PARTIAL
 }
 
 // Merges [splits, Q, kp] partials into the k <= kp best per query.

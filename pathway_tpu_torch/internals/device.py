@@ -371,12 +371,16 @@ def knn_write_bucket(nrows: int, capacity: int) -> tuple:
     return (nrows, capacity)
 
 
-def fused_knn_bucket(q: int, cap: int, d: int, k: int) -> tuple:
+def fused_knn_bucket(
+    q: int, cap: int, d: int, k: int, precision: str = "highest"
+) -> tuple:
     """Shape key of one launch of the fused KNN pair (``knn.fused``, the
-    JAX package's ``pallas.topk``): every input dim and k. The pair is
-    built once by nvcc; a new key is a new launch plan (query tile,
-    splits), counted as the JAX package counts a new executable."""
-    return (q, cap, d, k)
+    JAX package's ``pallas.topk``): every input dim, k and the precision,
+    which picks the partial kernel's instance (3xTF32 or one TF32 pass),
+    so a key never mixes the two. The pair is built once by nvcc; a new
+    key is a new launch plan (query tile, splits), counted as the JAX
+    package counts a new executable."""
+    return (q, cap, d, k, precision)
 
 
 def sharded_search_bucket(

@@ -22,9 +22,18 @@ so that about one CTA runs per SM and one merge block holds every
 candidate, and, where a large k caps the splits, the CTAs that share one
 split's rows (``plan_parts``).
 
-Bound on an H100 SXM: the database read, 4·cap·d bytes at 3.35 TB/s, or,
-when Q is large, the lesser of 2·Q·cap·d FP32 operations at 67 TFLOP/s and
-3 × 2·Q·cap·d TF32 operations at 495 TFLOP/s.
+The partial kernel has two instances by ``precision``: ``"highest"``
+(3xTF32, fp32-accurate: the JAX package's ``Precision.HIGHEST``) and
+``"default"`` (one TF32 pass over TF32-rounded operands: every product is
+exact in fp32, so a unit-vector score is within 2^-10·Σ|q_i x_i| ≤ 9.8e-4
+of the fp32 one, the JAX package's "~1e-3" budget for its fast path). The
+merge never sees the product and is the same for both.
+
+Bound on an H100 SXM (``fused_knn_bound``): the database read, 4·cap·d
+bytes at 3.35 TB/s, or, when Q is large, the operations: for
+``"highest"`` the lesser of 2·Q·cap·d FP32 operations at 67 TFLOP/s and
+3 × 2·Q·cap·d TF32 operations at 495 TFLOP/s; for ``"default"``
+2·Q·cap·d TF32 operations at 495 TFLOP/s.
 
 For a CPU tensor the wrapper runs the plain version, ``chunked_topk_scores``;
 for a CUDA tensor it launches the kernels or raises.
@@ -44,7 +53,7 @@ from pathway_tpu_torch.internals.device import (
     fused_knn_bucket,
 )
 from pathway_tpu_torch.ops import _build
-from pathway_tpu_torch.ops.topk import chunked_topk_scores
+from pathway_tpu_torch.ops.topk import check_precision, chunked_topk_scores
 
 K_MAX = 8192    # the largest k, the JAX index's clamp (csrc K_MAX)
 _TN = 256       # rows per split are a multiple of this (csrc ROW_GRANULE)
@@ -59,9 +68,14 @@ _MIN_STAGES, _MAX_STAGES = 4, 8
 _MAX_PARTS = 8  # CTAs that share a split (csrc MAX_PARTS)
 _CONSUMER_WARPS = 8
 _SELECT_ROOM = 4096  # shared bytes a consumer warp's selects use (csrc SELECT_ROOM)
+# TF32 passes of the partial kernel's instance for each precision (csrc
+# PASSES), and the name its launches are counted under
+PASSES = {"highest": 3, "default": 1}
+_KERNEL = {"highest": "fused_knn", "default": "fused_knn_tf32"}
 
-# launches of each kernel, counted where the wrapper launches it
-LAUNCHES = {"fused_knn": 0, "topk_merge": 0}
+# launches of each kernel, counted where the wrapper launches it: the
+# partial kernel's 3xTF32 and one-pass instances apart, and the merge
+LAUNCHES = {"fused_knn": 0, "fused_knn_tf32": 0, "topk_merge": 0}
 # shape buckets met by the pair's site, ``knn.fused`` (the JAX package's
 # ``pallas.topk``)
 _SEEN_BUCKETS: set = set()
@@ -89,6 +103,26 @@ def fused_knn_cost(
     return flops, bytes_accessed
 
 
+def fused_knn_bound(
+    q: int, cap: int, d: int, k: int, precision: str, rates: dict,
+    splits: int = 1, fp32_only: bool = False,
+) -> tuple[float, str]:
+    """(seconds, "bytes" or "operations"): the least time the card could
+    take for one partial pass and its output. Bytes: the database, the
+    queries and the valid mask read once, the ``splits`` partial lists
+    written once. Operations: the 2·q·cap·d product at the card's peak --
+    for "highest" the lesser of FP32 on the CUDA cores and 3xTF32 on the
+    tensor cores (FP32 alone with ``fp32_only``), for "default" one TF32
+    pass. ``rates`` is ``internals.device.peak_rates``'s dict."""
+    t_bytes = (4.0 * cap * d + 4.0 * q * d + cap + 8.0 * splits * q * k) / rates["bandwidth"]
+    flops = 2.0 * q * cap * d
+    t_fp32 = flops / rates["fp32"]
+    t_ops = PASSES[precision] * flops / rates["tf32"]
+    if precision == "highest":
+        t_ops = t_fp32 if fp32_only else min(t_ops, t_fp32)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 device_site(
     "knn.fused",
     cost_model=fused_knn_cost,
@@ -106,13 +140,13 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("fused_knn")
         lib.fused_knn_partial.argtypes = [
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
             _P, _P, _P, _P, _P, _P,
         ]
         lib.fused_knn_partial.restype = _I
         lib.fused_knn_merge.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P]
         lib.fused_knn_merge.restype = _I
-        lib.fused_knn_partial_smem.argtypes = [_I, _I, _I, _I]
+        lib.fused_knn_partial_smem.argtypes = [_I, _I, _I, _I, _I]
         lib.fused_knn_partial_smem.restype = ctypes.c_longlong
         lib.fused_knn_capacity.argtypes = [_I]  # the int getters return c_int
         consts = [
@@ -122,8 +156,10 @@ def _lib() -> ctypes.CDLL:
         ] + [
             (lib.fused_knn_capacity, (k,), capacity(k)) for k in (1, 10, 200, 8192)
         ] + [
-            (lib.fused_knn_partial_smem, (n, st, k, sb), partial_smem(n, st, k, bool(sb)))
+            (lib.fused_knn_partial_smem, (n, st, k, sb, p),
+             partial_smem(n, st, k, bool(sb), p))
             for n in _TILES for st, k, sb in ((4, 1, 1), (6, 10, 1), (8, 8192, 0))
+            for p in PASSES.values()
         ]
         for fn, args, want in consts:
             if fn(*args) != want:
@@ -155,14 +191,22 @@ def capacity(k: int) -> int:
     return _cdiv(k + max(k, _TM) + _TM, 32) * 32
 
 
-def partial_smem(n: int, stages: int, k: int, smem_buffers: bool) -> int:
+def _query_parts(passes: int) -> int:
+    """The queries' TF32 parts the instance reads: hi and lo for 3xTF32,
+    hi alone for one pass (csrc query_parts)."""
+    return 2 if passes == 3 else 1
+
+
+def partial_smem(n: int, stages: int, k: int, smem_buffers: bool,
+                 passes: int = 3) -> int:
     """Shared-memory bytes of one partial-kernel block: 1 KB to align the
     ring, ``stages`` stages of 128 index rows and the ``n`` queries' hi and
-    lo parts (32 dims each), the mbarriers, |q|^2, the running thresholds
-    and counts, each consumer warp's room for its selects, and the
-    candidate buffers when they live in shared memory."""
+    lo parts (hi alone with one pass; 32 dims each), the mbarriers, |q|^2,
+    the running thresholds and counts, each consumer warp's room for its
+    selects, and the candidate buffers when they live in shared memory."""
     return (
-        1024 + stages * (_TM + 2 * n) * _ROW_BYTES + 16 * _MAX_STAGES + 12 * n
+        1024 + stages * (_TM + _query_parts(passes) * n) * _ROW_BYTES
+        + 16 * _MAX_STAGES + 12 * n
         + _CONSUMER_WARPS * _SELECT_ROOM
         + (8 * n * capacity(k) if smem_buffers else 0)
     )
@@ -170,27 +214,31 @@ def partial_smem(n: int, stages: int, k: int, smem_buffers: bool) -> int:
 
 class Tile(NamedTuple):
     """A partial-kernel launch's geometry: ``n`` queries a CTA (the wgmma
-    N, 8..64), ``stages`` ring stages, and whether the candidate buffers
-    live in shared memory (else in a scratch tensor)."""
+    N, 8..64), ``stages`` ring stages, whether the candidate buffers live
+    in shared memory (else in a scratch tensor), and the instance's TF32
+    ``passes`` (3 or 1)."""
     n: int
     stages: int
     smem_buffers: bool
+    passes: int = 3
 
 
 @functools.lru_cache(maxsize=1024)
-def plan_tile(q: int, k: int) -> Tile:
+def plan_tile(q: int, k: int, precision: str = "highest") -> Tile:
     """The smallest instance that covers the batch (at most 64 queries a
     CTA); the buffers in shared memory where they fit beside a ring of 4
-    stages; then the deepest ring (at most 8 stages) that fits."""
+    stages; then the deepest ring (at most 8 stages) that fits. A one-pass
+    stage carries no lo part, so more of it fits."""
     if not 1 <= k <= K_MAX:
         raise ValueError(f"the fused KNN kernel takes 1 <= k <= {K_MAX}, got {k}")
+    passes = PASSES[precision]
     n = next(t for t in _TILES if t >= min(max(q, 1), _TILES[-1]))
-    smem_buffers = partial_smem(n, _MIN_STAGES, k, True) <= _SMEM_MAX
+    smem_buffers = partial_smem(n, _MIN_STAGES, k, True, passes) <= _SMEM_MAX
     stages = max(
         st for st in range(_MIN_STAGES, _MAX_STAGES + 1)
-        if partial_smem(n, st, k, smem_buffers) <= _SMEM_MAX
+        if partial_smem(n, st, k, smem_buffers, passes) <= _SMEM_MAX
     )
-    return Tile(n, stages, smem_buffers)
+    return Tile(n, stages, smem_buffers, passes)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -227,16 +275,17 @@ def _check(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
 
 
 def knn_partial_plain(queries, database, valid, k, rows, *, sq_norms=None,
-                      metric="dot"):
+                      metric="dot", precision="highest"):
     """Plain version of the partial pass: the top-k of each ``rows``-row
-    split, as ``[splits, Q, k]`` values and global slots."""
+    split, as ``[splits, Q, k]`` values and global slots; at ``precision``
+    "default" the product of the TF32-rounded operands."""
     parts = []
     for base in range(0, database.shape[0], rows):
         sl = slice(base, base + rows)
         v, i = chunked_topk_scores(
             queries, database[sl], valid[sl], k, chunk=rows,
             sq_norms=sq_norms[sl] if sq_norms is not None else None,
-            metric=metric,
+            metric=metric, precision=precision,
         )
         i = i + base
         if v.shape[1] < k:  # a split shorter than k: missing = (-inf, 0)
@@ -261,19 +310,21 @@ def topk_merge_plain(part_v, part_i, k):
 
 
 def knn_partial(queries, database, valid, k, rows, *, sq_norms=None,
-                metric="dot"):
+                metric="dot", precision="highest"):
     """Partial pass: ``[splits, Q, k]`` top-k values and slots of each
     ``rows``-row split of the database (``rows`` a multiple of 256), the
-    tile from ``plan_tile``. A CUDA tensor launches the kernel; a
-    CPU tensor runs the plain version."""
+    tile from ``plan_tile``, the instance by ``precision`` (3xTF32 for
+    "highest", one TF32 pass for "default"). A CUDA tensor launches the
+    kernel; a CPU tensor runs the plain version."""
     if queries.device.type == "cpu":
         return knn_partial_plain(
-            queries, database, valid, k, rows, sq_norms=sq_norms, metric=metric
+            queries, database, valid, k, rows, sq_norms=sq_norms, metric=metric,
+            precision=precision,
         )
     dev = queries.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    tile = plan_tile(queries.shape[0], k)
+    tile = plan_tile(queries.shape[0], k, precision)
     _check("queries", queries, torch.float32, 2, dev)
     _check("database", database, torch.float32, 2, dev)
     _check("valid", valid, torch.bool, 1, dev)
@@ -301,9 +352,11 @@ def knn_partial(queries, database, valid, k, rows, *, sq_norms=None,
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     parts = plan_parts(Q, splits, rows, k, n_sm)
     groups = _cdiv(Q, tile.n) * splits
-    # scratch: the queries' hi and lo parts; the candidate buffers when they
-    # do not fit in shared memory; the parts' lists and arrival counts
-    qs = torch.empty((2, Q, D), dtype=torch.float32, device=dev)
+    # scratch: the queries' hi and lo parts (hi alone with one pass); the
+    # candidate buffers when they do not fit in shared memory; the parts'
+    # lists and arrival counts
+    qs = torch.empty((_query_parts(tile.passes), Q, D), dtype=torch.float32,
+                     device=dev)
     buf = None if tile.smem_buffers else torch.empty(
         (groups * parts, tile.n, capacity(k)), dtype=torch.int64, device=dev)
     mbuf = arrived = None
@@ -316,11 +369,12 @@ def knn_partial(queries, database, valid, k, rows, *, sq_norms=None,
         queries.data_ptr(), qs.data_ptr(), database.data_ptr(), valid.data_ptr(),
         sq_norms.data_ptr() if l2sq else None,
         Q, N, D, k, int(l2sq), rows, splits, parts, tile.n, tile.stages,
+        tile.passes,
         ptr(buf), ptr(mbuf), ptr(arrived), part_v.data_ptr(), part_i.data_ptr(),
     )
     if err:
         raise RuntimeError(f"fused_knn partial launch failed: cudaError {err}")
-    LAUNCHES["fused_knn"] += 1
+    LAUNCHES[_KERNEL[precision]] += 1
     return part_v, part_i
 
 
@@ -364,16 +418,19 @@ def fused_topk_scores(
     *,
     sq_norms: torch.Tensor | None = None,  # [cap] f32, for l2sq
     metric: str = "dot",
+    precision: str = "highest",
 ):
     """Top-k scores per query: (values [Q, k] f32 descending,
     slots [Q, k] int32), ties to the lower slot, a missing entry -inf.
 
     ``metric`` is "dot" or "l2sq" (negated squared distance, from
-    ``sq_norms``). Scores are fp32-accurate. ``k`` is 1..8192 on every
-    device. On CUDA: the partial kernel over about one CTA per SM, then
-    the merge kernel unless the plan has one split; on the CPU: the plain
-    ``chunked_topk_scores``.
+    ``sq_norms``). Scores are fp32-accurate at ``precision`` "highest"
+    and the product of TF32-rounded operands at "default". ``k`` is
+    1..8192 on every device. On CUDA: the partial kernel's instance for
+    the precision over about one CTA per SM, then the merge kernel unless
+    the plan has one split; on the CPU: the plain ``chunked_topk_scores``.
     """
+    check_precision(precision)
     if not 1 <= k <= K_MAX:
         raise ValueError(f"fused_topk_scores takes 1 <= k <= {K_MAX}, got {k}")
     if metric not in ("dot", "l2sq"):
@@ -381,7 +438,8 @@ def fused_topk_scores(
     if metric == "l2sq" and sq_norms is None:
         raise ValueError("metric='l2sq' needs sq_norms")
     q, cap, d = queries.shape[0], database.shape[0], queries.shape[1]
-    _DEVICE.note_bucket(_SEEN_BUCKETS, "knn.fused", fused_knn_bucket(q, cap, d, k))
+    _DEVICE.note_bucket(_SEEN_BUCKETS, "knn.fused",
+                        fused_knn_bucket(q, cap, d, k, precision))
     if queries.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {queries.device}")
     # one timed dispatch record per launch pair (one attribute check when
@@ -390,7 +448,8 @@ def fused_topk_scores(
     try:
         if queries.device.type == "cpu":
             out = chunked_topk_scores(
-                queries, database, valid, k, sq_norms=sq_norms, metric=metric
+                queries, database, valid, k, sq_norms=sq_norms, metric=metric,
+                precision=precision,
             )
         else:
             n_sm = torch.cuda.get_device_properties(
@@ -398,7 +457,7 @@ def fused_topk_scores(
             rows, splits = plan_splits(q, cap, k, n_sm)
             part_v, part_i = knn_partial(
                 queries, database, valid, k, rows, sq_norms=sq_norms,
-                metric=metric,
+                metric=metric, precision=precision,
             )
             # one split's list is already the answer
             out = ((part_v[0], part_i[0]) if splits == 1

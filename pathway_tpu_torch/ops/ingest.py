@@ -9,7 +9,9 @@
   (on CUDA) starts the next batch's host→device copy from pinned memory
   on a side stream while the previous batch's chain runs; the compute
   stream waits on the copy's event before use. At most ``depth`` staged
-  batches are in flight (``PATHWAY_INGEST_DEPTH``).
+  batches are in flight (``PATHWAY_INGEST_DEPTH``). ``stage_h2d=False``
+  (``PATHWAY_INGEST_STAGE_H2D=0``) stages host tensors only: the batch is
+  copied at dispatch, on the compute stream.
 * **Supervision**: the chain is the ``ingest.fused`` device site, a timed
   dispatch record with its cost model and a launch under
   ``supervised_dispatch``. The ``device.h2d`` fault point fires while a
@@ -35,6 +37,7 @@ from typing import Any, Iterable, Sequence
 
 import torch
 
+from pathway_tpu_torch.analysis.eligibility import env_flag
 from pathway_tpu_torch.internals import device as _devsup
 from pathway_tpu_torch.internals.device import (
     PLANE as _DEVICE,
@@ -109,6 +112,7 @@ class IngestPipeline:
         index: KnnShard,
         *,
         depth: int | None = None,
+        stage_h2d: bool | None = None,
         device: Any = None,
     ):
         self.device = resolve_device(device)
@@ -135,9 +139,15 @@ class IngestPipeline:
             depth if depth is not None
             else _env_int("PATHWAY_INGEST_DEPTH", 2)
         )
+        self.stage_h2d = (
+            stage_h2d if stage_h2d is not None
+            else env_flag("PATHWAY_INGEST_STAGE_H2D", default=True)
+        )
         # on CUDA, staged batches copy host->device on their own stream
+        # (unless staging is off: then at dispatch, on the compute stream)
         self._copy_stream = (
-            torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+            torch.cuda.Stream(self.device)
+            if self.device.type == "cuda" and self.stage_h2d else None
         )
         # running totals: real tokens are what the corpus contained,
         # padded tokens are what the device executed
@@ -147,7 +157,8 @@ class IngestPipeline:
 
     # -- host stage --------------------------------------------------------
     def _stage(self, keys: Sequence[Any], texts: Sequence[str]):
-        """Tokenize + pad one batch and (on CUDA) start its H2D copy.
+        """Tokenize + pad one batch and (on CUDA, with ``stage_h2d``)
+        start its H2D copy.
         Runs on the producer thread in ``run`` — batch N+1 is staged while
         batch N's chain occupies the device."""
         enc = self.encoder

@@ -44,7 +44,11 @@ from pathway_tpu_torch.internals.device import (
 )
 from pathway_tpu_torch.internals.faults import fault_point
 from pathway_tpu_torch.ops.fused_knn import fused_topk_scores
-from pathway_tpu_torch.ops.topk import chunked_topk_scores, topk_scan_cost
+from pathway_tpu_torch.ops.topk import (
+    check_precision,
+    chunked_topk_scores,
+    topk_scan_cost,
+)
 
 _MIN_CAPACITY = 128
 
@@ -104,20 +108,25 @@ def write_slots(vectors: torch.Tensor, valid: torch.Tensor,
 
 def search_topk(queries: torch.Tensor, vectors: torch.Tensor,
                 valid: torch.Tensor, sq_norms: torch.Tensor, k_eff: int,
-                metric: str):
+                metric: str, precision: str = "highest",
+                chunk: int | None = None):
     """The ``knn.search`` chain: (values, slots) of the ``k_eff`` best
     rows per query, on the buffers' device — the fused KNN kernel pair
-    on CUDA (any k_eff of ``knn_search_bucket``, 1..8192), the plain
-    chunked scan elsewhere. ``metric`` is "dot" or "l2sq". Module-level
-    for the Device Doctor, which traces the plain scan on meta tensors
-    (a kernel bound through ctypes does not trace)."""
+    on CUDA (any k_eff of ``knn_search_bucket``, 1..8192; the instance
+    for ``precision``), the plain chunked scan in ``chunk``-row blocks
+    elsewhere (the kernel plans its own splits: ``chunk`` only caps
+    ``k_eff``, as in the JAX package). ``metric`` is "dot" or "l2sq".
+    Module-level for the Device Doctor, which traces the plain scan on
+    meta tensors (a kernel bound through ctypes does not trace)."""
     sq = sq_norms if metric == "l2sq" else None
     if vectors.device.type == "cuda":
         return fused_topk_scores(
-            queries, vectors, valid, k_eff, sq_norms=sq, metric=metric
+            queries, vectors, valid, k_eff, sq_norms=sq, metric=metric,
+            precision=precision,
         )
     return chunked_topk_scores(
-        queries, vectors, valid, k_eff, sq_norms=sq, metric=metric
+        queries, vectors, valid, k_eff, chunk=chunk, sq_norms=sq,
+        metric=metric, precision=precision,
     )
 
 
@@ -125,7 +134,11 @@ class KnnShard:
     """One device shard of a brute-force index: add/remove/search.
 
     The host side owns the key↔slot mapping; the device side only sees
-    dense slots. ``device=None`` runs on the card.
+    dense slots. ``device=None`` runs on the card. ``chunk`` caps a
+    search's k at that many rows, as in the JAX package (and blocks the
+    plain scan by it; None = the scores budget's block). ``precision`` is
+    "highest" (fp32 scores) or "default" (TF32 operands: the kernel's
+    one-pass instance, ~1e-3 score error on unit vectors).
     """
 
     def __init__(
@@ -133,11 +146,15 @@ class KnnShard:
         dimension: int,
         metric: Metric | str = Metric.COS,
         *,
+        chunk: int | None = None,
+        precision: str = "highest",
         capacity: int = _MIN_CAPACITY,
         device: Any = None,
     ):
         self.dimension = int(dimension)
         self.metric = Metric(metric)
+        self.chunk = chunk
+        self.precision = check_precision(precision)
         self.device = resolve_device(device)
         # pre-size to the expected corpus size to avoid growth copies
         self.capacity = pow2_capacity(capacity)
@@ -387,12 +404,13 @@ class KnnShard:
 
     # -- search -----------------------------------------------------------
     def topk(self, queries: torch.Tensor, k_eff: int, metric: str):
-        """(values, slots) on the device for queries already on it:
-        the fused kernel on CUDA (any k_eff of ``knn_search_bucket``,
-        1..8192), the plain chunked scan on the CPU. ``metric`` is "dot" or "l2sq". Caller holds
-        ``self.lock``."""
+        """(values, slots) on the device for queries already on it, at
+        the shard's precision: the fused kernel on CUDA (any k_eff of
+        ``knn_search_bucket``, 1..8192), the plain chunked scan on the
+        CPU. ``metric`` is "dot" or "l2sq". Caller holds ``self.lock``."""
         return search_topk(
-            queries, self.vectors, self.valid, self.sq_norms, k_eff, metric
+            queries, self.vectors, self.valid, self.sq_norms, k_eff, metric,
+            self.precision, self.chunk,
         )
 
     def search(self, queries, k: int) -> list[list[tuple[Any, float]]]:
@@ -413,7 +431,7 @@ class KnnShard:
         dev = _DEVICE.begin("knn.search", self.device) if _DEVICE.on else None
         try:
             with self.lock:  # read + launch before the next in-place write
-                bucket = knn_search_bucket(n, self.capacity, k, None)
+                bucket = knn_search_bucket(n, self.capacity, k, self.chunk)
                 _DEVICE.note_bucket(self._seen_buckets, "knn.search", bucket)
                 k_eff = bucket[2]
                 vals, idx = _devsup.supervised_dispatch(

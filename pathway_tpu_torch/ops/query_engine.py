@@ -39,8 +39,8 @@ class QueryEngine:
         self.shard = shard
         self.k = k
         # the packed-buffer layout [vals | idx] uses THIS k_eff even if
-        # the shard's capacity grows later
-        self.k_eff = knn_search_bucket(1, shard.capacity, k, None)[2]
+        # the shard's capacity grows later; the shard's chunk caps it
+        self.k_eff = knn_search_bucket(1, shard.capacity, k, shard.chunk)[2]
         # encoder outputs are L2-normalized, so cos == dot on the query
         # side; l2sq shards score with their cached squared norms
         self.metric = "l2sq" if shard.metric is Metric.L2SQ else "dot"

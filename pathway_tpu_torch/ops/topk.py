@@ -15,14 +15,21 @@ Ties. ``jax.lax.top_k`` breaks ties by position (lower index first);
 indices ``[1, 3]`` on the CPU). Every top-k here is a stable descending
 sort and a slice, which is positional.
 
-Precision. Scores are IEEE fp32, the JAX package's
-``precision="highest"``: TF32 is switched off for the product
-(``torch.backends.cuda.matmul.allow_tf32 = False``), as the hand-written
-kernel never uses it. On the CPU the BLAS picks its kernel, and so its
-rounding, by the product's shape; the plain product is therefore taken
-one fixed-shape granule of ``GRANULE`` database rows at a time, which
-scores a row the same wherever it sits (in one shard or in any shard of
-a sharded index).
+Precision. ``precision`` takes the two names the JAX package documents.
+``"highest"`` scores are IEEE fp32: TF32 is switched off for the product
+(``torch.backends.cuda.matmul.allow_tf32 = False``), and the hand-written
+kernel sums three TF32 products (3xTF32). ``"default"`` is the fast path
+for latency-bound serving: both operands rounded to TF32 (``tf32_round``,
+10 fraction bits, to nearest, ties away from zero, as the kernel's
+``tf32_rna`` rounds), then the same fp32 product. Every product of two
+TF32 values is exact in fp32, so the kernel's one TF32 pass and this plain
+version differ only in the order of their sums; a unit-vector score moves
+by at most 2^-10 * sum|q_i x_i| <= 9.8e-4 from the fp32 one. The l2sq
+norms stay those of the unrounded vectors. On the CPU the BLAS picks its
+kernel, and so its rounding, by the product's shape; the plain product
+is therefore taken one fixed-shape granule of ``GRANULE`` database rows
+at a time, which scores a row the same wherever it sits (in one shard or
+in any shard of a sharded index).
 """
 
 from __future__ import annotations
@@ -32,6 +39,27 @@ import contextlib
 import torch
 
 NEG_INF = float("-inf")
+# the precisions a search takes: the two the JAX package documents
+PRECISIONS = ("highest", "default")
+
+
+def check_precision(precision: str) -> str:
+    """``precision`` if it is one of ``PRECISIONS``, else ValueError."""
+    if precision not in PRECISIONS:
+        raise ValueError(
+            f"precision must be 'highest' (fp32 scores) or 'default' (TF32 "
+            f"operands, ~1e-3 score error), got {precision!r}"
+        )
+    return precision
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 fraction bits; to nearest, ties away
+    from zero) by integer ops on its bits, as the kernel's ``tf32_rna``
+    does: add half an ulp of TF32 to the magnitude bits, clear the 13 bits
+    TF32 drops. An f32 tensor of those values."""
+    u = x.contiguous().view(torch.int32)
+    return ((u + 0x1000) & -0x2000).view(torch.float32)
 
 
 def _topk_positional(scores: torch.Tensor, k: int):
@@ -145,6 +173,7 @@ def chunked_topk_scores(
     chunk: int | None = None,
     sq_norms: torch.Tensor | None = None,  # [cap] f32, for l2 metric
     metric: str = "dot",
+    precision: str = "highest",
 ):
     """Score queries against the database and return top-k per query.
 
@@ -152,17 +181,22 @@ def chunked_topk_scores(
       - "dot": plain inner product (cos if inputs are pre-normalized)
       - "l2sq": negated squared L2 distance (so larger is better)
 
+    precision: "highest" = fp32 scores; "default" = the product of the
+    TF32-rounded operands (the plain version of the kernel's one-pass
+    instance), ~1e-3 score error on unit vectors.
+
     The database is scanned in `chunk`-row blocks; per-block top-k results
     are merged, keeping peak memory at O(q * chunk) instead of O(q * cap).
     Returns (values [q, k] f32, indices [q, k] int32).
     """
+    check_precision(precision)
     q = queries.shape[0]
     cap = database.shape[0]
     if chunk is None:
         chunk = auto_chunk(cap, q)
     with _ieee_fp32():
         if cap <= chunk:
-            scores = _block_scores(queries, database, sq_norms, metric)
+            scores = _block_scores(queries, database, sq_norms, metric, precision)
             vals, idx = masked_topk(scores, valid[None, :], k)
             return vals, idx.to(torch.int32)
         if cap % chunk:
@@ -172,7 +206,7 @@ def chunked_topk_scores(
         for base in range(0, cap, chunk):
             sl = slice(base, base + chunk)
             sq = sq_norms[sl] if sq_norms is not None else None
-            scores = _block_scores(queries, database[sl], sq, metric)
+            scores = _block_scores(queries, database[sl], sq, metric, precision)
             vals, idx = masked_topk(scores, valid[None, sl], k)
             best_vals, best_idx = merge_topk(
                 best_vals, best_idx, vals, idx.to(torch.int32) + base, k
@@ -217,8 +251,12 @@ def _dot_scores(queries, db):
     return out[:, :n]
 
 
-def _block_scores(queries, db_block, sq_norms_block, metric):
-    scores = _dot_scores(queries, db_block)
+def _block_scores(queries, db_block, sq_norms_block, metric,
+                  precision="highest"):
+    if precision == "default":
+        scores = _dot_scores(tf32_round(queries), tf32_round(db_block))
+    else:
+        scores = _dot_scores(queries, db_block)
     if metric == "l2sq":
         qn = torch.sum(queries * queries, dim=-1, keepdim=True)
         scores = 2.0 * scores - qn - sq_norms_block[None, :]

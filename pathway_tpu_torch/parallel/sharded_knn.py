@@ -62,6 +62,7 @@ from pathway_tpu_torch.ops.knn import (
     write_cost_model,
 )
 from pathway_tpu_torch.ops.topk import (
+    check_precision,
     chunked_topk_scores,
     to_device_after,
     topk_scan_cost,
@@ -148,6 +149,8 @@ def sharded_topk(
     metric: str = "dot",
     merge: str = "gather",
     local_cap: int | None = None,
+    chunk: int | None = None,
+    precision: str = "highest",
 ):
     """Global top-k over a row-sharded database: shard ``s`` is
     ``databases[s]`` [rows_s, d] with ``valids[s]`` on its own device,
@@ -155,25 +158,32 @@ def sharded_topk(
     defaults to the first shard's rows; a shard may pass only the rows
     in use, a prefix of its buffer). Returns (values [q, k'], global
     slots [q, k']) on ``queries``' device, with
-    k' = min(k, n_shards * min(k, local_cap)).
+    k' = min(k, n_shards * k_l) and the per-shard k_l = min(k,
+    local_cap, chunk) (``chunk`` None = the whole shard), as in the JAX
+    package's ``sharded_topk``.
 
     Each shard's partial top-k is the fused KNN kernel pair on CUDA
-    (``fused_topk_scores``) and ``chunked_topk_scores`` on the CPU; the
-    partials merge by ``merge`` ("gather" or "tree"), lower shard first
-    on ties."""
+    (``fused_topk_scores``, the instance for ``precision``) and
+    ``chunked_topk_scores`` on the CPU; the partials merge by ``merge``
+    ("gather" or "tree"), lower shard first on ties. ``chunk`` changes
+    only k_l: a shard passes only its rows in use, which need not be a
+    whole number of chunks, and its scores do not depend on the blocking."""
+    check_precision(precision)
     n_shards = len(databases)
     if local_cap is None:
         local_cap = databases[0].shape[0]
-    k_l = min(k, local_cap)
+    k_l = min(k, local_cap, chunk or local_cap)
     k_out = min(k, n_shards * k_l)
     vals, idx = [], []
     for s, (db, valid) in enumerate(zip(databases, valids)):
         q = to_device_after(queries, db.device)
         sq = sq_norms[s] if sq_norms is not None else None
         if db.device.type == "cuda":
-            v, i = fused_topk_scores(q, db, valid, k_l, sq_norms=sq, metric=metric)
+            v, i = fused_topk_scores(q, db, valid, k_l, sq_norms=sq, metric=metric,
+                                     precision=precision)
         else:
-            v, i = chunked_topk_scores(q, db, valid, k_l, sq_norms=sq, metric=metric)
+            v, i = chunked_topk_scores(q, db, valid, k_l, sq_norms=sq, metric=metric,
+                                       precision=precision)
         vals.append(v)
         idx.append(i + s * local_cap)
     if merge == "tree" and n_shards > 1:
@@ -227,7 +237,10 @@ class ShardedKnnIndex:
     (``shard_owner(shard_hash(key), n_shards)``), so rows spread evenly
     and capacity scales with the mesh. Ties in query results are broken
     by insertion sequence on the host after the merge, so results are
-    bit-identical to a single ``KnnShard`` fed the same operations.
+    bit-identical to a single ``KnnShard`` fed the same operations (at
+    the same ``precision``). ``chunk`` caps each shard's partial k, as in
+    the JAX package; ``precision`` is "highest" or "default" as for
+    ``KnnShard``.
     """
 
     def __init__(
@@ -237,11 +250,15 @@ class ShardedKnnIndex:
         *,
         metric: Metric | str = Metric.COS,
         axis: str = "dp",
+        chunk: int | None = None,
+        precision: str = "highest",
     ):
         self.dimension = int(dimension)
         self.mesh = mesh
         self.axis = axis
         self.metric = Metric(metric)
+        self.chunk = chunk
+        self.precision = check_precision(precision)
         self.devices = [resolve_device(d) for d in mesh.axis_devices(axis)]
         self.n_shards = len(self.devices)
         # writes are normalized, and merges land, on the first shard's device
@@ -564,7 +581,7 @@ class ShardedKnnIndex:
             try:
                 with self.lock:  # read + launch before the next in-place write
                     bucket = sharded_search_bucket(
-                        n, self.n_shards, self.local_cap, k, None
+                        n, self.n_shards, self.local_cap, k, self.chunk
                     )
                     _DEVICE.note_bucket(
                         self._seen_buckets, "knn.sharded_search", bucket)
@@ -582,6 +599,7 @@ class ShardedKnnIndex:
                                 if metric == "l2sq" else None
                             ),
                             metric=metric, merge=merge, local_cap=self.local_cap,
+                            chunk=self.chunk, precision=self.precision,
                         ),
                     )
                     _DEVICE.enqueued(dev)

@@ -206,6 +206,15 @@ def test_plan_report_matches_the_jax_package(name, monkeypatch):
     if nb and not _nb_toolchain():
         pytest.skip("native toolchain (pwexec) unavailable")
     monkeypatch.setenv("PATHWAY_MESHCHECK_ROUNDS", "1")
+    # the reasons name tables by a per-process counter in each package
+    # (<table_N>): both start at 0 here, so that tables an earlier test file
+    # built in this process do not set the two reports apart
+    import importlib
+    import itertools
+
+    for pw in PACKAGES.values():
+        table_mod = importlib.import_module(pw.__name__ + ".internals.table")
+        monkeypatch.setattr(table_mod, "_table_counter", itertools.count())
     j, t = _analyze_both(build, **kw)
     assert _shape(t) == _shape(j), t.render()
     jd, td = j.to_dict(), t.to_dict()

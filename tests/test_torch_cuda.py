@@ -16,6 +16,18 @@ size (the dropped lo·lo term and the TF32 rounding residuals), so a score
 is off by at most 2^-20 of the sum of its terms' sizes (2·Σ|q_d·x_d|, plus
 |q|^2 + |x|^2 for l2sq), twice that for headroom on the fp32 sums; there
 slots must be equal wherever the gap exceeds twice that bound.
+
+The one-pass instance (``precision="default"``) is held against its plain
+version, the fp32 product of the TF32-rounded operands: every product of
+two TF32 values is exact in fp32, so the two differ only in the order of
+their sums. D products summed one after another are off by at most
+(D - 1)·2^-24 of the sum of their sizes. The kernel adds more: at most
+16 products on one accumulator (two wgmmas at 64 queries a CTA, one at
+8..32), whose 15 additions truncate (2^-23 each), then up to 3 fp32 adds
+of its accumulators a stage and one a stage, (D - 1 + 30 + D/32)·2^-24 of
+Σ|q_d·x_d| in all. The bound taken is (D + 32)·2^-24 of the 3xTF32
+check's sum of terms (2·Σ|q_d·x_d|, which covers it), and slots equal
+wherever the gap exceeds twice that.
 """
 
 import pytest
@@ -41,6 +53,11 @@ def _bound(q, db, pi, k, metric):
     if metric == "l2sq":
         terms = terms + (q * q).sum(-1, keepdim=True) + (rows * rows).sum(-1)
     return 2.0 ** -20 * terms
+
+
+def _bound1(q, db, pi, k, metric):
+    """The one-pass instance's summation-order bound (module docstring)."""
+    return 2.0 ** -4 * (q.shape[1] + 32) * _bound(q, db, pi, k, metric)
 
 
 def _check(v, i, pv, pi, k, bound=None):
@@ -203,10 +220,14 @@ def test_merge_at_the_largest_plan(gen, splits, kp, k):
 # -- the partial kernel's edges: wgmma N padding, query tiles, the buffers ------
 
 
-def _edge_case(gen, Q, N, D, k, rows=None, metric="dot", valid_p=0.2, ties=()):
+def _edge_case(gen, Q, N, D, k, rows=None, metric="dot", valid_p=0.2, ties=(),
+               precision="highest"):
     """The partial against ``knn_partial_plain`` split by split, and the
-    pair against ``chunked_topk_scores``, under the rules above; ``ties``
+    pair against ``chunked_topk_scores``, under the rules above (at
+    ``precision``, the instance against its own plain version); ``ties``
     are slots that hold query 0 exactly (times 3 for dot: the top score)."""
+    bound = _bound if precision == "highest" else _bound1
+    p = {"precision": precision}
     q = torch.randn(Q, D, generator=gen, device="cuda")
     db = torch.randn(N, D, generator=gen, device="cuda")
     valid = torch.rand(N, generator=gen, device="cuda") > valid_p
@@ -216,17 +237,19 @@ def _edge_case(gen, Q, N, D, k, rows=None, metric="dot", valid_p=0.2, ties=()):
     sq = (db * db).sum(-1)
     if rows is None:
         rows = fused_knn.plan_splits(Q, N, k, torch.cuda.get_device_properties(0).multi_processor_count)[0]
-    pv, pi = fused_knn.knn_partial(q, db, valid, k, rows, sq_norms=sq, metric=metric)
-    wv, wi = fused_knn.knn_partial_plain(q, db, valid, k + 1, rows, sq_norms=sq, metric=metric)
+    pv, pi = fused_knn.knn_partial(q, db, valid, k, rows, sq_norms=sq, metric=metric, **p)
+    wv, wi = fused_knn.knn_partial_plain(q, db, valid, k + 1, rows, sq_norms=sq,
+                                         metric=metric, **p)
     assert pv.shape == (-(-N // rows), Q, k)
     for s in range(pv.shape[0]):
-        _check(pv[s], pi[s], wv[s], wi[s], k, _bound(q, db, wi[s], k, metric))
-    v, i = fused_knn.fused_topk_scores(q, db, valid, k, sq_norms=sq, metric=metric)
-    pv2, pi2 = topk.chunked_topk_scores(q, db, valid, min(k + 1, N), sq_norms=sq, metric=metric)
+        _check(pv[s], pi[s], wv[s], wi[s], k, bound(q, db, wi[s], k, metric))
+    v, i = fused_knn.fused_topk_scores(q, db, valid, k, sq_norms=sq, metric=metric, **p)
+    pv2, pi2 = topk.chunked_topk_scores(q, db, valid, min(k + 1, N), sq_norms=sq,
+                                        metric=metric, **p)
     pad = k + 1 - pv2.shape[1]  # fewer rows than k + 1: every gap defined
     pv2 = torch.nn.functional.pad(pv2, (0, pad), value=float("-inf"))
     pi2 = torch.nn.functional.pad(pi2, (0, pad), value=0)
-    _check(v, i, pv2, pi2, k, _bound(q, db, pi2, k, metric))
+    _check(v, i, pv2, pi2, k, bound(q, db, pi2, k, metric))
     if ties:
         assert i[0, :len(ties)].tolist() == list(ties)
         assert (v[0, :len(ties)] == v[0, 0]).all()
@@ -264,6 +287,57 @@ def test_partial_kernel_capacity_below_k(gen, N, k):
     n_valid = torch.isfinite(v).sum(-1)
     assert (n_valid == n_valid[0]).all() and int(n_valid[0]) <= N
     assert ((i >= 0) & (i < N)).all()
+
+
+# -- the one-pass instance (precision="default") on the same edges --------------
+
+
+@pytest.mark.parametrize("Q", [1, 7, 8, 9, 64, 255, 256])
+def test_one_pass_query_tile_edges(gen, Q):
+    assert fused_knn.plan_tile(Q, 10, "default").passes == 1
+    before = dict(fused_knn.LAUNCHES)
+    _edge_case(gen, Q, 20000, 96, 10, precision="default")
+    # the one-pass instance ran, the 3xTF32 one did not
+    assert fused_knn.LAUNCHES["fused_knn_tf32"] == before["fused_knn_tf32"] + 2
+    assert fused_knn.LAUNCHES["fused_knn"] == before["fused_knn"]
+
+
+@pytest.mark.parametrize("k", [1, 10, 32, 33, 1024, 8192])
+def test_one_pass_k_edges(gen, k):
+    _edge_case(gen, 3, 40000, 64, k, precision="default")
+
+
+@pytest.mark.parametrize("metric", ["dot", "l2sq"])
+def test_one_pass_ragged_split_invalid_rows_and_tie_across_a_split(gen, metric):
+    """A ragged last split (469 rows), half the rows invalid, and an exact
+    tie across a tile boundary (rows 127 and 128) and a split boundary."""
+    _edge_case(gen, 5, 5077, 40, 7, rows=768, metric=metric, valid_p=0.5,
+               ties=(127, 128, 768, 5076), precision="default")
+
+
+@pytest.mark.parametrize("Q", [32, 256])
+def test_one_pass_at_d384_within_3e_5_of_its_plain_version(gen, Q):
+    """Unit rows at the served width (d = 384): every score of the partial
+    within 3e-5 of the plain version's ((383 + 42)·2^-24 = 2.53e-5 of
+    Σ|q_i x_i| <= 1 at the 64-query instance's chains, the longest, which
+    Q = 256 runs; Q = 32 runs the 32-query one, (383 + 28)·2^-24), slots
+    equal where the plain gap exceeds 6e-5, and the instance's scores
+    within 1e-3 of the 3xTF32 instance's."""
+    q = torch.nn.functional.normalize(torch.randn(Q, 384, generator=gen, device="cuda"), dim=-1)
+    db = torch.nn.functional.normalize(torch.randn(1 << 17, 384, generator=gen, device="cuda"), dim=-1)
+    valid = torch.ones(1 << 17, dtype=torch.bool, device="cuda")
+    pv, pi = fused_knn.knn_partial(q, db, valid, 10, 8192, precision="default")
+    wv, wi = fused_knn.knn_partial_plain(q, db, valid, 11, 8192, precision="default")
+    torch.cuda.synchronize()
+    assert (pv - wv[..., :10]).abs().max().item() <= 3e-5
+    gap = wv[..., :-1] - wv[..., 1:]
+    left = torch.cat([torch.full_like(gap[..., :1], float("inf")), gap[..., :9]], -1)
+    clear = torch.minimum(left, gap) > 6e-5
+    assert torch.equal(pi[clear], wi[..., :10][clear])
+    hv, _ = fused_knn.fused_topk_scores(q, db, valid, 10)
+    dv, _ = fused_knn.fused_topk_scores(q, db, valid, 10, precision="default")
+    torch.cuda.synchronize()
+    assert (hv - dv).abs().max().item() <= 1e-3
 
 
 def test_device_plane_closes_a_knn_search_record_on_cuda_events(gen):
@@ -531,6 +605,43 @@ def test_supervised_ingest_on_the_card(gen):
     finally:
         faults.clear_plan()
     assert len(shard) == 128
+
+
+def test_ingest_without_staged_h2d_equals_staged_on_the_card(gen):
+    """``stage_h2d=False``: no side stream and no copy event, the batch
+    copied at dispatch; the embeddings and the index rows equal, bit for
+    bit, those of the staged ingest (the default) of the same batches."""
+    from pathway_tpu_torch.ops import IngestPipeline, KnnShard
+
+    enc, staged_shard, staged = _small_pipeline()
+    plain_shard = KnnShard(enc.embed_dim, "cos", capacity=256)
+    plain = IngestPipeline(enc, plain_shard, stage_h2d=False)
+    assert staged.stage_h2d and staged._copy_stream is not None
+    assert not plain.stage_h2d and plain._copy_stream is None
+    keys = [f"d{i}" for i in range(96)]
+    texts = [f"document {i} about topic {i % 5} " * (1 + i % 4) for i in range(96)]
+    batches = [(keys[i:i + 32], texts[i:i + 32]) for i in range(0, 96, 32)]
+    embs = {}
+    for name, pipe in (("plain", plain), ("staged", staged)):
+        embs[name] = []
+        for b in batches:
+            st = pipe._stage(*b)
+            wire, event = st[1], st[3]
+            # off: host tensors and no event; on: on the card, with its event
+            assert (event is None) == (name == "plain"), name
+            assert {t.device.type for t in wire} == {
+                "cpu" if name == "plain" else "cuda"}, name
+            embs[name].append(pipe._dispatch(st).clone())
+        torch.cuda.synchronize()
+    for a, b in zip(embs["plain"], embs["staged"]):
+        assert torch.equal(a, b)
+    got = plain_shard.vectors[[plain_shard.key_to_slot[k] for k in keys]]
+    want = staged_shard.vectors[[staged_shard.key_to_slot[k] for k in keys]]
+    assert torch.equal(got, want)
+    # and through run(), the producer thread's path
+    again = KnnShard(enc.embed_dim, "cos", capacity=256)
+    assert IngestPipeline(enc, again, stage_h2d=False).run(iter(batches)) == 96
+    assert torch.equal(again.vectors[[again.key_to_slot[k] for k in keys]], want)
 
 
 def test_recompiles_equal_the_captured_graphs(gen):

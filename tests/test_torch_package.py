@@ -461,3 +461,103 @@ def test_chip_smoke_fails_alone(tmp_path):
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+# keywords of the JAX package's public functions and classes that the port
+# deliberately does not take, each with its reason ("module:name" -> names)
+KEYWORD_EXEMPT = {
+    # Flax's module fields: the port's models are torch.nn.Modules
+    "models/cross_encoder.py:CrossEncoderModel": {"name", "parent"},
+    "models/encoder.py:TransformerEncoder": {"name", "parent"},
+    # shard_map's axis plumbing: torch has no shard_map, and the port's
+    # recursive doubling takes the per-shard lists themselves
+    "ops/topk.py:tree_merge_topk": {"axis", "axis_size"},
+    # the port's sharded_topk takes a list of per-device shards (a mesh of
+    # torch devices holds no global sharded array to pass)
+    "parallel/sharded_knn.py:sharded_topk": {"mesh", "axis", "database", "valid"},
+    # Flax's parameter tree (path, leaf) and its sharding map: the port
+    # shards nn.Module parameters by name
+    "parallel/train.py:param_sharding_rules": {"path", "leaf"},
+    "parallel/train.py:make_param_shardings": {"params"},
+    # the Pallas kernel's wrapper became the CUDA kernel's: a bool mask in
+    # place of the additive one, and no TPU block or interpret mode (the
+    # kernel plans its own tiles; the CPU runs the plain version)
+    "ops/pallas_knn.py:pallas_topk_scores": {"add_mask", "block", "interpret"},
+}
+# public names the port has under another name, and the jit idioms it has
+# not at all (PyTorch runs eagerly: there is no executable to build)
+RENAMED_NAMES = {
+    "ops/pallas_knn.py:pallas_topk_scores": "fused_topk_scores",
+    "ops/pallas_knn.py:pallas_knn_cost": "fused_knn_cost",
+    "ops/ingest.py:make_fused": None,
+    "parallel/sharded_knn.py:make_sharded_write": None,
+}
+
+
+def _keywords(obj):
+    """(the names a caller may pass by keyword, whether **kwargs is taken),
+    or None where Python cannot read a signature."""
+    import inspect
+
+    try:
+        sig = inspect.signature(obj)
+    except (TypeError, ValueError):
+        return None
+    params = sig.parameters.values()
+    return (
+        {p.name for p in params if p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY)},
+        any(p.kind is p.VAR_KEYWORD for p in params),
+    )
+
+
+def test_public_signatures_accept_the_jax_keywords():
+    """For every public function and class of the JAX package's modules
+    that import JAX, the port's counterpart accepts every keyword the JAX
+    one accepts, but for the exemptions above."""
+    import importlib
+    import inspect
+
+    jax_import = re.compile(r"^\s*(import jax|from jax)\b", re.M)
+    root = os.path.join(REPO, "pathway_tpu")
+    modules = sorted(
+        os.path.relpath(os.path.join(d, f), root).replace(os.sep, "/")
+        for d, _, fs in os.walk(root) for f in fs
+        if f.endswith(".py") and jax_import.search(open(os.path.join(d, f), encoding="utf-8").read())
+    )
+    assert "ops/knn.py" in modules and "parallel/sharded_knn.py" in modules
+    missing, compared, used = [], 0, set()
+    for rel in modules:
+        port_rel = RENAMED.get(rel, rel)
+        if port_rel is None:
+            continue
+        name_of = lambda r: r[:-3].replace("/", ".").removesuffix(".__init__")  # noqa: E731
+        jmod = importlib.import_module("pathway_tpu." + name_of(rel))
+        pmod = importlib.import_module("pathway_tpu_torch." + name_of(port_rel))
+        for name, obj in vars(jmod).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) != jmod.__name__:
+                continue
+            if not (inspect.isfunction(obj) or inspect.isclass(obj)):
+                continue
+            key = f"{rel}:{name}"
+            port_name = RENAMED_NAMES.get(key, name)
+            if port_name is None:
+                used.add(key)
+                continue
+            if key in RENAMED_NAMES:
+                used.add(key)
+            want, got = _keywords(obj), _keywords(getattr(pmod, port_name, None))
+            if want is None:
+                continue
+            assert got is not None, f"{key}: the port has no {port_name}"
+            compared += 1
+            if got[1]:
+                continue
+            lost = want[0] - got[0] - KEYWORD_EXEMPT.get(key, set())
+            if key in KEYWORD_EXEMPT:
+                used.add(key)
+            if lost:
+                missing.append(f"{key}: {sorted(lost)}")
+    assert missing == []
+    assert compared > 50
+    # every exemption still names something the JAX package has
+    assert used == set(KEYWORD_EXEMPT) | set(RENAMED_NAMES)
