@@ -94,7 +94,17 @@ Phases (each prints one JSON line; any failure exits non-zero):
             card whose loss must equal the first step's within 1e-2; an
             f32 step of 8 pairs x 32 tokens whose loss (rtol 1e-4) and
             every gradient (1e-4 of each tensor's largest) must equal the
-            port's own step on the CPU;
+            port's own step on the CPU; then tp = 2: ``spawn -n 2`` ranks
+            sharing the card over gloo on ``global_mesh(shape=(1, 2))``,
+            each holding its Megatron shards (``tp_rank``) from the
+            phase's state dict and batch, written to files: five bf16
+            steps (median wall ms of steps 2-5, peak device memory,
+            parameter-state bytes, all-reduces a step), then one f32 step
+            whose gradients, gathered over the tp group, must equal the
+            card's f32 step within 1e-4 of each tensor's largest; the
+            parameters on the card, the all-reduces run, the state bytes
+            at most 0.70 of tp = 1's, and the first bf16 loss within 1e-2
+            of dp = 1's;
 10. spawn   ``python -m pathway_tpu_torch spawn -n 2`` of a program the
             phase writes, then the same program under ``spawn -n 1``: each
             rank calls ``initialize_from_env()`` (gloo: the ranks share
@@ -241,6 +251,10 @@ TR_QUERY_LEN = 32
 TR_PASSAGE_LEN = 128
 TR_STEPS = 10
 TR_CHECK_PAIRS = 8
+# the train phase's tp = 2 step: two ranks on the one card, bf16 steps
+TP_STEPS = 5
+TP_TIMEOUT_S = 180
+TP_STATE_SHARE = 0.70
 # the spawn phase
 SP_DOCS = 4096
 SP_TOPICS = 16
@@ -1273,19 +1287,17 @@ if grouped:
 """
 
 
-def run_spawn(root: str, processes: int, args: list, timeout: int) -> dict:
-    """``python -m pathway_tpu_torch spawn -n processes`` of the spawn
-    program; its whole process group is killed if it outlives ``timeout``."""
+def spawn_ranks(root: str, out: str, processes: int, argv: list, timeout: int) -> tuple:
+    """``python -m pathway_tpu_torch spawn -n processes argv``, its whole
+    process group killed if it outlives ``timeout``: the seconds it took
+    and each rank's ``out/rank{r}.json``."""
     import signal
 
-    out = os.path.join(root, f"out{processes}")
-    os.makedirs(out)
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=repo)
     env.pop("PATHWAY_COORDINATOR", None)
     cmd = [sys.executable, "-m", "pathway_tpu_torch", "spawn", "-n", str(processes),
-           "--first-port", str(free_port_base(processes + 1)),
-           os.path.join(root, "prog.py"), *args[:3], out, args[3]]
+           "--first-port", str(free_port_base(processes + 1)), *argv]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, env=env, cwd=root, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, start_new_session=True)
@@ -1302,6 +1314,17 @@ def run_spawn(root: str, processes: int, args: list, timeout: int) -> dict:
     for r in range(processes):
         with open(os.path.join(out, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
+    return seconds, ranks
+
+
+def run_spawn(root: str, processes: int, args: list, timeout: int) -> dict:
+    """``python -m pathway_tpu_torch spawn -n processes`` of the spawn
+    program: its ranks' records, rows and counts."""
+    out = os.path.join(root, f"out{processes}")
+    os.makedirs(out)
+    seconds, ranks = spawn_ranks(
+        root, out, processes, [os.path.join(root, "prog.py"), *args[:3], out, args[3]],
+        timeout)
     rows = {}
     with open(os.path.join(out, "rows.jsonl")) as f:
         for line in f:
@@ -1891,10 +1914,158 @@ def pad_to(ids, mask, L: int):
     return out_ids, out_mask
 
 
+def param_state_bytes(model, tx) -> int:
+    """Device bytes of the parameters, their gradients and the optimizer's
+    state (AdamW: two moments and a step count per tensor)."""
+    import torch
+
+    params = list(model.parameters())
+    total = sum(p.numel() * p.element_size() for p in params)
+    total += sum(p.grad.numel() * p.grad.element_size() for p in params if p.grad is not None)
+    for st in tx.state.values():
+        total += sum(v.numel() * v.element_size() for v in st.values() if torch.is_tensor(v))
+    return total
+
+
+# the train phase's tp ranks: python -m pathway_tpu_torch spawn -n 2 prog.py WORK
+TP_PROGRAM = """
+import sys
+from chip_smoke import tp_rank
+tp_rank(sys.argv[1])
+"""
+
+
+def tp_rank(work: str) -> None:
+    """One rank of the train phase's tp = 2 step on the card: the state
+    dict and batches the parent wrote to ``work``, this rank's shards of
+    them on ``global_mesh(shape=(1, 2))``, five bf16 steps and one f32
+    step; what it saw goes to ``work/rank{r}.json`` (and rank 0's gathered
+    f32 gradients to ``work/grads.pt``)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from pathway_tpu_torch.models import EncoderConfig
+    from pathway_tpu_torch.parallel import (
+        create_train_state, gather_state_dict, global_mesh, initialize_from_env,
+        make_sharded_train_step, shard_state_dict,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent's steps
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    if not initialize_from_env():
+        fail("the tp ranks formed no process group")
+    rank = dist.get_rank()
+    mesh = global_mesh(shape=(1, 2))
+    sd = torch.load(os.path.join(work, "state_dict.pt"))
+    data = np.load(os.path.join(work, "batches.npz"))
+    batch = {k: data[k] for k in ("q_ids", "q_mask", "d_ids", "d_mask")}
+    small = {k: data["small_" + k] for k in batch}
+    cfg = EncoderConfig.bge_small()
+
+    def fresh(config):
+        state, model, tx = create_train_state(config, mesh)
+        model.load_state_dict(shard_state_dict(sd, model.tp.size, model.tp.rank))
+        return state, model, tx, make_sharded_train_step(model, tx, mesh)
+
+    state, model, tx, step = fresh(cfg)
+    tp = model.tp
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, reduces = [], [], []
+    for _ in range(TP_STEPS):
+        before = tp.all_reduces
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        reduces.append(tp.all_reduces - before)
+        losses.append(float(loss))
+    record = {
+        "rank": rank, "backend": dist.get_backend(), "coords": mesh.coords(),
+        "devices": sorted({str(p.device) for p in model.parameters()}),
+        "shards": {n: list(p.shape) for n, p in model.named_parameters()
+                   if n.startswith("blocks.0.") and n.endswith(".weight")},
+        "all_reduces_per_step": reduces, "losses": losses, "step_ms": step_ms,
+        "median_step_ms": float(np.median(step_ms[1:5])),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "param_state_bytes": param_state_bytes(model, tx),
+        "params": sum(p.numel() for p in model.parameters()),
+    }
+    del state, model, tx, step
+    torch.cuda.empty_cache()
+    state, model, tx, step = fresh(dataclasses.replace(cfg, dtype=torch.float32))
+    state, loss = step(state, small)
+    record["f32_loss"] = float(loss)
+    grads = gather_state_dict({n: p.grad for n, p in model.named_parameters()}, model.tp)
+    if rank == 0:
+        torch.save({n: g.cpu() for n, g in grads.items()}, os.path.join(work, "grads.pt"))
+    record["process_s"] = time.perf_counter() - t_start
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+    dist.destroy_process_group()
+
+
+def train_tp(cfg, sd: dict, batch: dict, small: dict, card_grads: dict,
+             tp1_bytes: int) -> dict:
+    """The train phase's step (d): tp = 2 over two ranks sharing the card
+    (``tp_rank``), held against the phase's dp = 1 run and its f32 card
+    gradients."""
+    import shutil
+
+    import torch
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    torch.save({n: t.cpu() for n, t in sd.items()}, os.path.join(work, "state_dict.pt"))
+    np.savez(os.path.join(work, "batches.npz"), **batch,
+             **{"small_" + k: v for k, v in small.items()})
+    with open(os.path.join(work, "prog.py"), "w") as f:
+        f.write(TP_PROGRAM)
+    try:
+        seconds, ranks = spawn_ranks(work, work, 2, [os.path.join(work, "prog.py"), work],
+                                     TP_TIMEOUT_S)
+        grads = torch.load(os.path.join(work, "grads.pt"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    bad = grad_mismatches(grads, card_grads, 1e-4)
+    # per block: g after the two row-parallel layers forward, f before the
+    # two column-parallel ones backward, for queries and passages; and one
+    # sum of the sliced bias gradients
+    want_reduces = 2 * cfg.layers * 4 + 1
+    row = {"phase": "train_tp2", "seconds": seconds, "ranks": ranks,
+           "tp1_param_state_bytes": tp1_bytes,
+           "want_all_reduces_per_step": want_reduces,
+           "f32_check": {"tensors": len(card_grads), "mismatched": bad}}
+    for r in ranks:
+        r["param_state_share"] = r["param_state_bytes"] / tp1_bytes
+    return row
+
+
+def check_train_tp(tp: dict, first_loss: float) -> None:
+    for r in tp["ranks"]:
+        if r["devices"] != ["cuda:0"] or r["backend"] != "gloo":
+            fail(f"tp rank {r['rank']}: parameters on {r['devices']}, backend {r['backend']}")
+        if r["all_reduces_per_step"] != [tp["want_all_reduces_per_step"]] * TP_STEPS:
+            fail(f"tp rank {r['rank']}: {r['all_reduces_per_step']} tp all-reduces a step, "
+                 f"not {tp['want_all_reduces_per_step']}")
+        if r["param_state_share"] > TP_STATE_SHARE:
+            fail(f"tp rank {r['rank']}: parameter state {r['param_state_bytes']} B is "
+                 f"{r['param_state_share']:.3f} of tp = 1's")
+        if not abs(r["losses"][0] - first_loss) <= 1e-2:
+            fail(f"tp rank {r['rank']}: first bf16 loss {r['losses'][0]} vs dp = 1's "
+                 f"{first_loss}")
+    if tp["f32_check"]["mismatched"]:
+        fail(f"the tp = 2 f32 gradients differ from the card's: "
+             f"{tp['f32_check']['mismatched'][:5]}")
+
+
 def phase_train(pt, fk, ckpt: str, written: dict, seed: int, device: str = "cuda:0"):
     """InfoNCE fine-tuning of bge-small from the main phase's checkpoint:
-    ten steps at dp = 1, one at dp = 2 on the same card, and an f32 step
-    whose gradients must equal the port's own CPU step."""
+    ten steps at dp = 1, one at dp = 2 on the same card, an f32 step
+    whose gradients must equal the port's own CPU step, and tp = 2 over
+    two ranks on the card (``train_tp``)."""
     import dataclasses
 
     import torch
@@ -1959,6 +2130,7 @@ def phase_train(pt, fk, ckpt: str, written: dict, seed: int, device: str = "cuda
     # every kernel's device time in one step: the rest is the card idle
     row["step_device_ms"] = profiled_ms(lambda: step(state, batch), "")
     row["device_busy_share"] = row["step_device_ms"] / med_ms
+    tp1_bytes = row["param_state_bytes"] = param_state_bytes(model, state.opt_state)
     del state, model, step
 
     # (b) one step at dp = 2 on the same card, from the same weights
@@ -1983,15 +2155,22 @@ def phase_train(pt, fk, ckpt: str, written: dict, seed: int, device: str = "cuda
     row["f32_check"] = {"pairs": TR_CHECK_PAIRS, "tokens": TR_QUERY_LEN,
                         "card_loss": card_loss, "cpu_loss": cpu_loss,
                         "tensors": len(cpu_g), "mismatched": bad}
-    row["launches"] = dict(fk.LAUNCHES)
-    del out, card_g, cpu_g
+    card_g = {n: g.cpu() for n, g in card_g.items()}
+    del out, cpu_g
     torch.cuda.empty_cache()
+
+    row["launches"] = dict(fk.LAUNCHES)
     emit(row)
     if abs(row["dp2_loss"] - losses[0]) > 1e-2:
         fail(f"the dp = 2 step's loss {row['dp2_loss']} differs from dp = 1's {losses[0]}")
     if abs(card_loss - cpu_loss) > 1e-4 * abs(cpu_loss) or bad:
         fail(f"the card's f32 step differs from the CPU's: loss {card_loss} vs "
              f"{cpu_loss}, gradients {bad[:5]}")
+
+    # (d) tp = 2: two ranks share the card over gloo, each with its shards
+    tp_row = train_tp(cfg, sd, batch, small, card_g, tp1_bytes)
+    emit(tp_row)
+    check_train_tp(tp_row, losses[0])
     return row["launches"]
 
 

@@ -43,6 +43,7 @@ from pathway_tpu_torch.internals.device import (
     seq_bucket,
 )
 from pathway_tpu_torch.models.tokenizer import get_tokenizer
+from pathway_tpu_torch.parallel.distributed import TensorParallel
 
 LN_EPS = 1e-6
 
@@ -93,15 +94,64 @@ def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
 
+class _Shard(nn.Linear):
+    """A dense layer's tp shard: ``weight`` the rank's rows (column
+    parallel) or columns (row parallel) of the ``[out, in]`` weight,
+    ``bias`` whole, as the reference replicates every bias. With one
+    rank it is ``nn.Linear(in_features, out_features)``, initialised as
+    that is."""
+
+    def __init__(self, out_features: int, in_features: int, bias_features: int):
+        nn.Module.__init__(self)
+        self.in_features, self.out_features = in_features, out_features
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(bias_features))
+        self.reset_parameters()
+
+
+def _tp_size(cfg: EncoderConfig, tp) -> int:
+    """``tp.size``, checked against the heads and the MLP width."""
+    if cfg.heads % tp.size or cfg.mlp % tp.size:
+        raise ValueError(f"tp={tp.size} does not divide the {cfg.heads} heads "
+                         f"and the MLP width {cfg.mlp}")
+    return tp.size
+
+
+def _column(x: torch.Tensor, layer: _Shard, tp) -> torch.Tensor:
+    """A column-parallel layer on this rank's rows, with its slice of the
+    replicated bias."""
+    b = layer.bias.to(x.dtype)
+    rows = layer.weight.shape[0]
+    return F.linear(x, layer.weight.to(x.dtype), b[tp.rank * rows:(tp.rank + 1) * rows])
+
+
+def _row(x: torch.Tensor, layer: _Shard, tp) -> torch.Tensor:
+    """A row-parallel layer: this rank's partial product, summed over the
+    tp group (Megatron's g), the bias added once, after the sum; with
+    one rank the sum is the product itself and the bias goes in it."""
+    if tp.size == 1:
+        return _linear(x, layer)
+    return tp.reduce(F.linear(x, layer.weight.to(x.dtype))) + layer.bias.to(x.dtype)
+
+
 class _Attention(nn.Module):
-    def __init__(self, cfg: EncoderConfig):
+    """``tp``: the tensor-parallel attachment (``size``, ``rank``,
+    ``copy`` for Megatron's f and ``reduce`` for its g;
+    ``parallel.distributed.TensorParallel``): q/k/v hold heads
+    ``rank·heads/size`` onwards and ``out`` their columns; with one rank,
+    the whole weights."""
+
+    def __init__(self, cfg: EncoderConfig, tp: TensorParallel):
         super().__init__()
         h = cfg.hidden
-        self.heads = cfg.heads
-        self.query = nn.Linear(h, h)
-        self.key = nn.Linear(h, h)
-        self.value = nn.Linear(h, h)
-        self.out = nn.Linear(h, h)
+        local = h // _tp_size(cfg, tp)
+        self.tp = tp
+        self.heads = cfg.heads // tp.size  # this rank's
+        self.head_dim = h // cfg.heads
+        self.query = _Shard(local, h, h)
+        self.key = _Shard(local, h, h)
+        self.value = _Shard(local, h, h)
+        self.out = _Shard(h, local, h)
         self._scales: dict = {}
 
     def _scale(self, hd: int, dt: torch.dtype, device) -> torch.Tensor:
@@ -115,12 +165,13 @@ class _Attention(nn.Module):
         return t
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        n, L, h = x.shape
-        hd = h // self.heads
+        tp, hd = self.tp, self.head_dim
+        n, L, _ = x.shape
         dt = x.dtype
-        q = _linear(x, self.query).view(n, L, self.heads, hd)
-        k = _linear(x, self.key).view(n, L, self.heads, hd)
-        v = _linear(x, self.value).view(n, L, self.heads, hd)
+        x = tp.copy(x)
+        q = _column(x, self.query, tp).view(n, L, self.heads, hd)
+        k = _column(x, self.key, tp).view(n, L, self.heads, hd)
+        v = _column(x, self.value, tp).view(n, L, self.heads, hd)
         # Flax scales the query by sqrt(depth) rounded to the dtype
         q = q / self._scale(hd, dt, x.device)
         s = torch.einsum("nqhd,nkhd->nhqk", q, k)
@@ -128,32 +179,44 @@ class _Attention(nn.Module):
         # jax.nn.softmax in the activation dtype
         e = torch.exp(s - s.amax(-1, keepdim=True))
         w = e / e.sum(-1, keepdim=True)
-        o = torch.einsum("nhqk,nkhd->nqhd", w, v).reshape(n, L, h)
-        return _linear(o, self.out)
+        o = torch.einsum("nhqk,nkhd->nqhd", w, v).reshape(n, L, self.heads * hd)
+        return _row(o, self.out, tp)
 
 
 class _Block(nn.Module):
-    def __init__(self, cfg: EncoderConfig):
+    """``tp``: as ``_Attention``'s (None: one rank); ``mlp_in`` holds
+    rows of the [mlp, hidden] weight and ``mlp_out`` the matching
+    columns."""
+
+    def __init__(self, cfg: EncoderConfig, tp: TensorParallel | None = None):
         super().__init__()
-        self.attention = _Attention(cfg)
+        tp = self.tp = tp or TensorParallel(1, 0)
+        self.attention = _Attention(cfg, tp)
         self.ln_attn = _LayerNorm(cfg.hidden)
-        self.mlp_in = nn.Linear(cfg.hidden, cfg.mlp)
-        self.mlp_out = nn.Linear(cfg.mlp, cfg.hidden)
+        local = cfg.mlp // _tp_size(cfg, tp)
+        self.mlp_in = _Shard(local, cfg.hidden, cfg.mlp)
+        self.mlp_out = _Shard(cfg.hidden, local, cfg.hidden)
         self.ln_mlp = _LayerNorm(cfg.hidden)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         x = self.ln_attn(x + self.attention(x, mask))
+        tp = self.tp
         # erf-based gelu: the approximate tanh form drifts ~1e-3
-        h = F.gelu(_linear(x, self.mlp_in), approximate="none")
-        return self.ln_mlp(x + _linear(h, self.mlp_out))
+        h = F.gelu(_column(tp.copy(x), self.mlp_in, tp), approximate="none")
+        return self.ln_mlp(x + _row(h, self.mlp_out, tp))
 
 
 class TransformerEncoder(nn.Module):
-    """Token ids + mask -> L2-normalized sentence embeddings [n, hidden]."""
+    """Token ids + mask -> L2-normalized sentence embeddings [n, hidden].
 
-    def __init__(self, config: EncoderConfig):
+    ``tp``: the tensor-parallel attachment that every block shards its
+    attention and MLP weights on (``_Attention``), by default one rank
+    with whole weights; embeddings and LayerNorms stay whole."""
+
+    def __init__(self, config: EncoderConfig, tp: TensorParallel | None = None):
         super().__init__()
         cfg = self.config = config
+        tp = self.tp = tp or TensorParallel(1, 0)
         self.tok_embed = nn.Embedding(cfg.vocab_size, cfg.hidden)
         self.pos_embed = nn.Embedding(cfg.max_len, cfg.hidden)
         # single-segment encoding: BERT's token_type embedding collapses to
@@ -161,7 +224,7 @@ class TransformerEncoder(nn.Module):
         # checkpoints load losslessly)
         self.type_embed = nn.Embedding(2, cfg.hidden)
         self.ln_embed = _LayerNorm(cfg.hidden)
-        self.blocks = nn.ModuleList(_Block(cfg) for _ in range(cfg.layers))
+        self.blocks = nn.ModuleList(_Block(cfg, tp) for _ in range(cfg.layers))
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         dt = self.config.dtype

@@ -14,7 +14,8 @@ copy per worker); and the ``torch.distributed`` process group of the
 ranks that ``python -m pathway_tpu_torch spawn`` starts
 (``distributed``); exact attention over a sequence split around a ring
 of devices or ranks (``ring_attention``), and the encoder's InfoNCE
-fine-tuning step over a dp/tp mesh (``train``). The exported names load
+fine-tuning step over a dp/tp mesh (``train``), whose tp axis across
+ranks shards the encoder's weights Megatron-style. The exported names load
 on first use, so importing one submodule imports none of the others.
 """
 
@@ -32,6 +33,9 @@ _EXPORTS = {
     "create_train_state": "train",
     "contrastive_train_step": "train",
     "make_sharded_train_step": "train",
+    "TensorParallel": "distributed",
+    "shard_state_dict": "train",
+    "gather_state_dict": "train",
 }
 
 __all__ = [

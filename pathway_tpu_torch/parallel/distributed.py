@@ -21,6 +21,7 @@ from __future__ import annotations
 import os
 from typing import Any
 
+import numpy as np
 import torch
 
 from pathway_tpu_torch.internals.config import get_pathway_config
@@ -94,14 +95,112 @@ def initialize_from_env(
 
 
 def global_mesh(axes=("dp", "tp"), shape=None, *, device: Any = None):
-    """This process's mesh. torch has no single controller, so a rank of a
-    process group meshes the device it drives (``rank_device``); a single
-    process meshes every visible card, or the CPU when ``device="cpu"``."""
+    """This process's mesh. In a single process: every visible card, or the
+    CPU when ``device="cpu"``. In a process group it spans the world's
+    ranks, as the reference's spans every device of the cluster: ``shape``
+    (by default ``best_factorization(world)`` for two axes) lays them out
+    with the last axis fastest, the rank drives its own device
+    (``rank_device``), and the subgroup of every axis line is made here,
+    once (``Mesh.group``)."""
     import torch.distributed as dist
 
-    from pathway_tpu_torch.parallel.mesh import make_mesh
+    from pathway_tpu_torch.parallel.mesh import Mesh, best_factorization, make_mesh
 
     dev = rank_device(device)
-    grouped = dist.is_available() and dist.is_initialized()
-    devices = [dev] if grouped or dev.type == "cpu" else None
-    return make_mesh(axes=axes, shape=shape, devices=devices)
+    if not (dist.is_available() and dist.is_initialized()):
+        devices = [dev] if dev.type == "cpu" else None
+        return make_mesh(axes=axes, shape=shape, devices=devices)
+    axes = tuple(axes)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if shape is None:
+        if len(axes) == 1:
+            shape = (world,)
+        elif len(axes) == 2:
+            shape = best_factorization(world)
+        else:
+            raise ValueError("pass `shape` explicitly for >2 mesh axes")
+    shape = tuple(shape)
+    if int(np.prod(shape)) != world:
+        raise ValueError(f"mesh shape {shape} does not cover the {world} ranks")
+    ranks = np.arange(world).reshape(shape)
+    local = make_mesh(axes=axes, shape=(1,) * len(axes), devices=[dev])
+    return Mesh(local.devices, axes, ranks=ranks, rank=rank,
+                groups=_axis_groups(ranks, axes, rank))
+
+
+def _axis_groups(ranks: np.ndarray, axes: tuple, rank: int) -> dict:
+    """This rank's subgroup on every axis of ``ranks``. ``new_group`` is
+    collective over the world: every rank makes every line's group, in
+    the same order, including the lines it is not on; a line that is the
+    whole world is the world's group."""
+    import torch.distributed as dist
+
+    mine = {}
+    for a, axis in enumerate(axes):
+        for line in np.moveaxis(ranks, a, -1).reshape(-1, ranks.shape[a]):
+            members = [int(r) for r in line]
+            group = (dist.group.WORLD if len(members) == ranks.size
+                     else dist.new_group(members))
+            if rank in members:
+                mine[axis] = group
+    return mine
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` over ``group`` in place (gloo reduces bf16 as it is, as
+    XLA's psum does)."""
+    import torch.distributed as dist
+
+    dist.all_reduce(t, group=group)
+    return t
+
+
+class TensorParallel:
+    """A rank's place in its tp group: ``size`` ranks, this one ``rank``,
+    the ``torch.distributed`` ``group`` (unused with one rank; None would
+    mean the world's). The encoder's blocks shard on it
+    (``models/encoder.py``) and call ``copy`` and ``reduce`` around their
+    column- and row-parallel layers; ``all_reduces`` counts the group's
+    collectives. ``TensorParallel(1, 0)``, the encoder's default, holds
+    whole weights and makes no collective."""
+
+    def __init__(self, size: int, rank: int, group=None):
+        self.size, self.rank, self.group = size, rank, group
+        self.all_reduces = 0
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        self.all_reduces += 1
+        return _all_reduce(t, self.group)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's f: ``x`` forward, its gradient summed backward."""
+        return x if self.size == 1 else _CopyToGroup.apply(x, self)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's g: ``x`` summed forward, the gradient as is backward."""
+        return x if self.size == 1 else _ReduceOverGroup.apply(x, self)
+
+    def __repr__(self) -> str:
+        return f"TensorParallel(size={self.size}, rank={self.rank})"
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.tp.all_reduce(grad.clone(memory_format=torch.contiguous_format)), None
+
+
+class _ReduceOverGroup(torch.autograd.Function):
+    # not torch.distributed.nn's all_reduce: its backward sums again
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.all_reduce(x.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None

@@ -10,12 +10,18 @@ torch has no mesh object, so ``Mesh`` is a small one: a grid of
 ``make_mesh(devices=[cuda:0] * 4)`` lays four index shards on one card,
 and ``make_mesh(devices=[cpu] * 8)`` eight on the CPU, as the JAX
 package's virtual CPU devices do for its tests.
+
+Under a ``torch.distributed`` process group each rank drives one device,
+so a rank's mesh (``distributed.global_mesh``) holds that device alone
+and, beside it, the grid of every rank (``ranks``): the reference's
+``make_mesh`` reshapes the device list with the last axis fastest, so
+rank r of a (dp, tp) grid sits at (r // tp, r % tp).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Sequence
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -39,15 +45,50 @@ def best_factorization(n: int, max_tp: int = 8) -> tuple[int, int]:
 @dataclass(frozen=True, eq=False)
 class Mesh:
     """A grid of devices with named axes. ``devices`` is an object array
-    of ``torch.device`` shaped like the mesh; ``shape`` maps each axis
-    name to its size."""
+    of ``torch.device`` shaped like the mesh: the devices this process
+    drives. ``shape`` maps each axis name to its size in that grid.
+
+    A rank's mesh also has ``ranks``, the int array of every rank of the
+    process group laid out on the axes, ``rank``, this process's rank,
+    and ``groups``, the ``torch.distributed`` group of each axis that
+    holds this rank (``group``); its device grid is the
+    rank's own device, size 1 on every axis."""
 
     devices: np.ndarray
     axis_names: tuple[str, ...]
+    ranks: np.ndarray | None = None
+    rank: int | None = None
+    groups: Mapping[str, Any] | None = None
 
     @property
     def shape(self) -> dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def global_shape(self) -> dict[str, int]:
+        """The axis sizes over every process: the ranks' grid under a
+        process group, else ``shape``."""
+        grid = self.devices if self.ranks is None else self.ranks
+        return dict(zip(self.axis_names, grid.shape))
+
+    def coords(self) -> dict[str, int]:
+        """This rank's index on each axis of ``ranks``."""
+        (where,) = np.argwhere(self.ranks == self.rank)
+        return dict(zip(self.axis_names, (int(i) for i in where)))
+
+    def axis_ranks(self, axis: str) -> list[int]:
+        """The ranks along ``axis`` through this rank, in axis order."""
+        index = list(self.coords().values())
+        index[self.axis_names.index(axis)] = slice(None)
+        return [int(r) for r in self.ranks[tuple(index)]]
+
+    def group(self, axis: str):
+        """The ``torch.distributed`` group of the ranks along ``axis``
+        that holds this rank."""
+        if self.groups is None:
+            raise ValueError(f"{self} is not a mesh of a process group "
+                             "(global_mesh() after initialize_from_env())")
+        return self.groups[axis]
 
     def axis_devices(self, axis: str) -> list[torch.device]:
         """The devices along ``axis``, the other axes at index 0: one per

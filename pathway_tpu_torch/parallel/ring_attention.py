@@ -13,10 +13,10 @@ Two rings:
 * over a ``Mesh`` axis in one process (``mesh.axis_devices(axis)``): the
   blocks are copied to the next device (``.to(dev, non_blocking=True)``),
   a re-indexing where the mesh repeats one device;
-* over the ``torch.distributed`` process group, when it is initialized and
-  the mesh is the rank's own (``global_mesh``: one device per rank): each
-  rank passes its own block and gets its own block of the output back;
-  the blocks travel with ``batch_isend_irecv``.
+* over the ranks of a process group's mesh (``global_mesh``: one device
+  per rank, the axis a line of ranks): each rank passes its own block and
+  gets its own block of the output back; the blocks travel around the
+  axis's ranks with ``batch_isend_irecv``.
 
 The block step is plain torch (two matmuls and the softmax update), as
 the JAX package leaves its ``einsum`` to XLA.
@@ -68,11 +68,11 @@ class _Accumulator:
 
 
 def _grouped(mesh: Mesh) -> bool:
-    """The ring is the process group: it is initialized and ``mesh`` is
-    this rank's own, one device."""
+    """The ring is a line of ranks: the process group is initialized and
+    ``mesh`` is a rank's mesh over it."""
     import torch.distributed as dist
 
-    return dist.is_available() and dist.is_initialized() and mesh.devices.size == 1
+    return dist.is_available() and dist.is_initialized() and mesh.ranks is not None
 
 
 def _ring_over_mesh(q, k, v, devices, causal, sm_scale):
@@ -103,11 +103,13 @@ def _ring_over_mesh(q, k, v, devices, causal, sm_scale):
     return torch.cat([a.result(q.dtype).to(q.device) for a in accs], dim=2)
 
 
-def _ring_over_group(q, k, v, causal, sm_scale):
+def _ring_over_group(q, k, v, ring: list[int], causal, sm_scale):
+    """The ring over the ranks ``ring`` (global ranks, in ring order),
+    this rank among them."""
     import torch.distributed as dist
 
-    p, my = dist.get_world_size(), dist.get_rank()
-    nxt, prv = (my + 1) % p, (my - 1) % p
+    p, my = len(ring), ring.index(dist.get_rank())
+    nxt, prv = ring[(my + 1) % p], ring[(my - 1) % p]
 
     def rotate(k_blk, v_blk):
         k_in, v_in = torch.empty_like(k_blk), torch.empty_like(v_blk)
@@ -147,14 +149,13 @@ def ring_attention(
     Inputs are [batch, heads, seq, head_dim] with seq divisible by the
     axis size; batch and heads stay whole on every device of the ring.
     Within one process the output is the whole sequence, on ``q``'s
-    device. Over the process group (initialized, and ``mesh`` the rank's
-    own) each rank passes its own sequence block and gets its block of
-    the output.
+    device. On a rank's mesh (``global_mesh``) each rank of the axis
+    passes its own sequence block and gets its block of the output.
     """
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if _grouped(mesh):
-        return _ring_over_group(q, k, v, causal, sm_scale)
+        return _ring_over_group(q, k, v, mesh.axis_ranks(axis), causal, sm_scale)
     devices = [resolve_device(d) for d in mesh.axis_devices(axis)]
     return _ring_over_mesh(q, k, v, devices, causal, sm_scale)
 
