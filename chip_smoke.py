@@ -12,9 +12,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
             Q in {1, 32, 256}, Q = 32 at k = 1024 and Q = 1 at k = 8192;
             seeded unit vectors, some slots invalid, one exact three-way
             tie) and time kernel, plain version and a library yardstick,
-            with each case's plan and share of its bound; the partial
-            kernel at Q = 256 is also timed under torch.profiler; every
-            case again at precision "default" (the partial kernel's
+            with each case's plan and share of its bound; the runs the
+            merge is handed (every split's list) must not increase, and
+            the merge (the design its size picks: one CTA a query, or the
+            run merge) must equal its plain version bit for bit; the
+            partial kernel at Q = 256 is also timed under torch.profiler;
+            both merge designs at a grid of sizes, each bit for bit
+            against the plain merge, timed in device time (the
+            ``merge_designs`` line: where the one-CTA merge stops being
+            the faster); every case again at precision "default" (the
+            partial kernel's
             one-pass TF32 instance): partials within 3e-5 of the plain
             version, slots equal where its gap exceeds 6e-5, the merge bit
             for bit, the tie to the lower slot, and its times beside its
@@ -63,7 +70,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
             (``make_mesh(devices=[cuda:0] * 4)``) and a ``KnnShard``, both
             filled with the same 1,048,576 seeded unit vectors (1 %
             removed, one exact three-way tie across shards); queries at
-            Q = 1 / 32 / 256, k = 10 and Q = 32, k = 1024 under
+            the kernels phase's cases (k = 10 at Q = 1 / 32 / 256, Q = 32
+            at k = 1024, Q = 1 at k = 8192: both merge designs) under
             ``PATHWAY_INDEX_MERGE=gather`` and ``tree`` must give ids and
             scores bit-identical to the single shard; the same two indexes
             switched to precision "default" at Q = 32, k = 10, bit for bit
@@ -364,9 +372,10 @@ def unit_rows(gen, n: int, d: int):
     return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
 
 
-def profiled_ms(fn, name: str, reps: int = 1) -> float:
-    """Device time per call of the kernels whose name holds ``name`` over
-    ``reps`` calls of ``fn`` under torch.profiler (after a warm-up call)."""
+def profiled_ms(fn, name, reps: int = 1) -> float:
+    """Device time per call of the kernels whose name holds ``name`` (a
+    string, or a tuple of strings: any of them) over ``reps`` calls of
+    ``fn`` under torch.profiler (after a warm-up call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -377,10 +386,67 @@ def profiled_ms(fn, name: str, reps: int = 1) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    names = (name,) if isinstance(name, str) else name
     return sum(
         e.time_range.elapsed_us() / 1e3 for e in prof.events()
-        if e.device_type == DeviceType.CUDA and name in e.name
+        if e.device_type == DeviceType.CUDA and any(n in e.name for n in names)
     ) / reps
+
+
+# the merge kernels of each design, by their names in a profile
+MERGE_KERNELS = {"block": "merge_kernel", "runs": ("cut_kernel", "place_kernel")}
+# the merge_designs grid: (runs, candidates a run = k, Q); 128 runs are
+# the partial pass's splits at Q <= 32 on 132 SMs, 33 at Q = 256, 4 a
+# four-shard gather, 2 a tree merge's step
+MERGE_GRID = tuple((s, k, q) for s, ks in ((128, (10, 16, 24, 32, 64, 128, 256)),
+                                          (33, (10, 64)), (4, (10, 1024, 2048, 8192)),
+                                          (2, (256, 512, 1024)))
+                   for k in ks for q in (1, 32))
+
+
+def check_runs(part_v, what: str) -> None:
+    """Fail where a run handed to the merge increases (the run merge's
+    precondition: each run non-increasing in value)."""
+    if bool((part_v[..., 1:] > part_v[..., :-1]).any()):
+        fail(f"a run handed to the merge increases ({what})")
+
+
+def phase_merge_designs(fk, seed: int) -> dict:
+    """Both merge designs on sorted runs of seeded normal values over
+    ``MERGE_GRID``, each bit for bit against the plain merge, in device
+    time (torch.profiler) and on CUDA events; the crossover is the largest
+    candidate count at which the one-CTA merge is still the faster."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    rows = []
+    for S, k, Q in MERGE_GRID:
+        v = torch.sort(torch.randn((S, Q, k), generator=gen, device="cuda"),
+                       dim=-1, descending=True).values.contiguous()
+        i = torch.randint(0, 1 << 20, (S, Q, k), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        check_runs(v, f"merge_designs S={S}, k={k}, Q={Q}")
+        want = fk.topk_merge_plain(v, i, k)
+        row = {"runs": S, "k": k, "Q": Q, "candidates": S * k,
+               "picked": fk.merge_design(S, k, k)}
+        for design in ("block", "runs"):
+            got = fk.topk_merge(v, i, k, design=design)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                fail(f"the {design} merge disagrees with its plain version at "
+                     f"S={S}, k={k}, Q={Q}")
+            row[f"{design}_device_ms"] = profiled_ms(
+                lambda: fk.topk_merge(v, i, k, design=design), MERGE_KERNELS[design],
+                reps=20)
+            row[f"{design}_ms"] = cuda_ms(
+                lambda: fk.topk_merge(v, i, k, design=design), reps=50)
+        rows.append(row)
+    faster = [r["candidates"] for r in rows if r["block_device_ms"] <= r["runs_device_ms"]]
+    out = {"phase": "merge_designs", "rows": rows,
+           "crossover_setting": fk._MERGE_CROSSOVER,
+           "block_faster_up_to": max(faster, default=0)}
+    emit(out)
+    return out
 
 
 def kernel_case_default(fk, topk, rates, q, db, valid, mask, k, rows, splits,
@@ -395,6 +461,7 @@ def kernel_case_default(fk, topk, rates, q, db, valid, mask, k, rows, splits,
     p = {"precision": "default"}
     part_v, part_i = fk.knn_partial(q, db, valid, k, rows, **p)
     plain_pv, plain_pi = fk.knn_partial_plain(q, db, valid, k + 1, rows, **p)
+    check_runs(part_v, f"the one-pass partials at Q={Q}, k={k}")
     merged_v, merged_i = fk.topk_merge(part_v, part_i, k)
     plain_mv, plain_mi = fk.topk_merge_plain(part_v, part_i, k)
     vals, idx = fk.fused_topk_scores(q, db, valid, k, **p)
@@ -466,14 +533,16 @@ def phase_kernels(fk, topk, rates, seed: int):
         rows, splits = fk.plan_splits(Q, CAP, k, n_sm)
         tile = fk.plan_tile(Q, k)
         parts = fk.plan_parts(Q, splits, rows, k, n_sm)
+        design = fk.merge_design(splits, k, k)
 
         part_v, part_i = fk.knn_partial(q, db, valid, k, rows)
         plain_pv, plain_pi = fk.knn_partial_plain(q, db, valid, k, rows)
+        check_runs(part_v, f"the partials at Q={Q}, k={k}")
         merged_v, merged_i = fk.topk_merge(part_v, part_i, k)
         plain_mv, plain_mi = fk.topk_merge_plain(part_v, part_i, k)
         torch.cuda.synchronize()
         if not torch.equal(merged_i, plain_mi) or not torch.equal(merged_v, plain_mv):
-            fail(f"topk_merge disagrees with its plain version at Q={Q}, k={k}")
+            fail(f"topk_merge ({design}) disagrees with its plain version at Q={Q}, k={k}")
 
         # end to end: the fused pair against the plain scan; slots must be
         # equal wherever the plain gap to a neighbour exceeds 1e-5
@@ -535,7 +604,7 @@ def phase_kernels(fk, topk, rates, seed: int):
         # the merge is short enough that the host's launch path bounds the
         # back-to-back timing: its device time and the yardstick's, apart
         merge_device_ms = profiled_ms(
-            lambda: fk.topk_merge(part_v, part_i, k), "merge_kernel", reps=20)
+            lambda: fk.topk_merge(part_v, part_i, k), MERGE_KERNELS[design], reps=20)
         merge_library_device_ms = profiled_ms(merge_library, "", reps=20)
 
         # least time: each input read once, each output written once, or
@@ -546,17 +615,22 @@ def phase_kernels(fk, topk, rates, seed: int):
         bound_ms = 1e3 * bound_s
         fp32_bound_s, _ = fk.fused_knn_bound(Q, CAP, DIM, k, "highest", rates, splits,
                                              fp32_only=True)
-        part_bytes = 8.0 * splits * Q * k
-        merge_bound_ms = 1e3 * (part_bytes + 8.0 * Q * k) / bw
+        # the merge's least bytes: the kept entries (value and slot) read
+        # once, the [Q, k] pair written once
+        merge_bound_ms = 1e3 * 16.0 * Q * k / bw
         cm_flops, cm_bytes = fk.fused_knn_cost(Q, CAP, DIM, k, 1024)
         row = {
             "phase": "kernels", "Q": Q, "cap": CAP, "d": DIM, "k": k,
             # the partial kernel's plan: queries a CTA (the wgmma N), ring
             # stages, candidate buffers in shared memory or a scratch
-            # tensor, CTAs that share a split
+            # tensor, CTAs that share a split, CTAs; the merge's candidates
+            # a query and its design
             "query_tile": tile.n, "ring_stages": tile.stages,
             "smem_buffers": tile.smem_buffers, "parts": parts,
             "splits": splits, "rows_per_split": rows,
+            "ctas": -(-Q // tile.n) * splits * parts,
+            "partial_bytes": fk.partial_bytes(Q, k, splits, parts),
+            "merge_candidates": splits * k, "merge_design": design,
             "fused_knn_ms": ms, "fused_knn_plain_ms": plain_ms,
             "fused_knn_bound_ms": bound_ms,
             "fused_knn_bound_share": bound_ms / ms,
@@ -565,12 +639,16 @@ def phase_kernels(fk, topk, rates, seed: int):
             "fused_knn_max_abs_err": part_err,
             "topk_merge_ms": merge_ms, "topk_merge_plain_ms": plain_merge_ms,
             "topk_merge_bound_ms": merge_bound_ms,
+            "topk_merge_bound_share": merge_bound_ms / merge_device_ms,
             "topk_merge_library_ms": merge_library_ms,
             "topk_merge_device_ms": merge_device_ms,
             "topk_merge_library_device_ms": merge_library_device_ms,
             "search_ms": pair_ms, "search_plain_ms": scan_ms,
             "library_ms": library_ms,
-            "launches_per_search": {"fused_knn": 1, "topk_merge": int(splits > 1)},
+            "launches_per_search": {
+                "fused_knn": 1,
+                "topk_merge": int(splits > 1 and design == "block"),
+                "topk_merge_runs": int(splits > 1 and design == "runs")},
             "cost_model_bound_ms": 1e3 * max(cm_bytes / bw, cm_flops / fp32_peak),
         }
         if Q == 256:
@@ -879,7 +957,8 @@ def phase_main(pt, fk, ckpt: str, written: dict, seed: int):
     emit(default_row)
     if recall < RECALL_MIN or mb_recall < RECALL_MIN:
         fail(f"recall of the own document {recall} / {mb_recall} < {RECALL_MIN}")
-    if not all(launches.values()):
+    # k = 10: the partial kernel's two instances and the one-CTA merge
+    if not all(launches.get(n) for n in ("fused_knn", "fused_knn_tf32", "topk_merge")):
         fail(f"serving did not launch every kernel: {launches}")
     emit(breakdown(pipe, engine, docs, keys, texts))
     emit(trace(pipe, engine, docs, keys, texts))
@@ -1735,7 +1814,8 @@ def phase_sharded(pt, fk, seed: int):
         "default_bit_identical": {"Q": 32, "k": K}, "launches": launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     })
-    if not all(launches.get(n) for n in ("fused_knn", "fused_knn_tf32", "topk_merge")):
+    if not all(launches.get(n) for n in ("fused_knn", "fused_knn_tf32", "topk_merge",
+                                         "topk_merge_runs")):
         fail(f"the sharded searches did not launch every kernel: {launches}")
     del sharded
     torch.cuda.empty_cache()
@@ -2990,6 +3070,7 @@ def main() -> int:
     if rates is None:
         fail(f"no data-sheet peaks for {kind!r} in internals/device.py")
     kern = phase_kernels(fk, topk, rates, args.seed)
+    phase_merge_designs(fk, args.seed)
     ckpt = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"), "bge-small")
     written = write_checkpoint(ckpt, pt.EncoderConfig.bge_small(), args.seed + CKPT_SEED)
     main_launches, enc = phase_main(pt, fk, ckpt, written, args.seed)
@@ -3018,6 +3099,9 @@ def main() -> int:
 
     main_q = kern[(256, K)]
     main_d = kern[(256, K, "default")]
+    large = kern[(1, 8192)]
+    if large["merge_design"] != "runs":
+        fail("the Q = 1, k = 8192 case did not plan the run merge")
     src = "pathway_tpu_torch/csrc/fused_knn.cu"
     replaces = "pathway_tpu/ops/pallas_knn.py:34"
     emit({"kernels": [
@@ -3044,6 +3128,13 @@ def main() -> int:
          "ms": main_q["topk_merge_device_ms"], "plain_ms": main_q["topk_merge_plain_ms"],
          "bound_ms": main_q["topk_merge_bound_ms"], "bound_by": "bytes",
          "library_ms": main_q["topk_merge_library_device_ms"]},
+        # the run merge (cut_kernel + place_kernel), past the one-CTA
+        # merge's crossover: at Q = 1, k = 8192 (128 runs of 8192)
+        {"name": "topk_merge_runs", "route": "cuda", "source": src, "replaces": replaces,
+         "launches": launches["topk_merge_runs"], "max_abs_err": 0.0,
+         "ms": large["topk_merge_device_ms"], "plain_ms": large["topk_merge_plain_ms"],
+         "bound_ms": large["topk_merge_bound_ms"], "bound_by": "bytes",
+         "library_ms": large["topk_merge_library_device_ms"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {

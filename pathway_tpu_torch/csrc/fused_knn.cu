@@ -8,16 +8,18 @@
 // split in two passes:
 //
 //   fused_knn_partial  grid (query tiles x database splits x parts), about
-//                      one CTA per SM, 288 threads: two consumer warpgroups
-//                      and one producer warp (warp specialisation). A CTA
-//                      answers NQ queries (NQ in 8/16/32/64, a template
-//                      instance the wrapper picks from Q) over its range of
-//                      rows, TM = 128 rows x 32 dims at a time. Where a
-//                      large k leaves SMs idle (splits * k <= 32768), up to
-//                      8 CTAs ("parts") share a split's rows; each hands its
-//                      k best to a merge area and the last to arrive (an
-//                      atomic count) cuts the parts' lists to the split's
-//                      k best, so the output stays [splits, Q, k].
+//                      one CTA per SM at every k, 288 threads: two consumer
+//                      warpgroups and one producer warp (warp
+//                      specialisation). A CTA answers NQ queries (NQ in
+//                      8/16/32/64, a template instance the wrapper picks
+//                      from Q) over its range of rows, TM = 128 rows x 32
+//                      dims at a time. Where the splits leave SMs idle (a
+//                      split is at least 256 rows, so a small index has
+//                      few), up to 8 CTAs ("parts") share a split's rows;
+//                      each hands its k best to a merge area and the last
+//                      to arrive (an atomic count) cuts the parts' lists
+//                      to the split's k best, so the output stays
+//                      [splits, Q, k].
 //     copies           one producer thread keeps cp.async.bulk.tensor (TMA)
 //                      loads in flight into a ring of 4-8 shared-memory
 //                      stages, each guarded by a full and an empty
@@ -50,7 +52,7 @@
 //                      never used. At small NQ a wgmma's issue costs about
 //                      the same whatever its width, and a stage takes 12:
 //                      that, not the bytes, bounds what one CTA streams,
-//                      hence the parts at large k.
+//                      hence a CTA for every SM at every k.
 //     one pass         precision "default" (PASSES = 1, the other template
 //                      instance): the queries' hi part alone (no lo in the
 //                      scratch copy, the ring or the stage), A rounded to
@@ -87,14 +89,46 @@
 //                      serves every k: the register-lane fold of the
 //                      mma.sync kernel for k <= 32 is gone, and no shape
 //                      keeps the mma.sync kernel.
-//   fused_knn_merge    one CTA of 256 threads per query: loads the splits'
-//                      lists (splits*kp candidates, in split order) as
-//                      order-preserving keys, finds the k-th largest by a
-//                      radix select (8 bits a pass, shared histogram, at most
-//                      4 passes),
+//   fused_knn_merge    the k best of S runs [S, Q, kp], taken in run order,
+//                      in one of two designs (the wrapper picks by size):
+//     one CTA          (block) one CTA of 256 threads per query: loads the
+//                      runs' S*kp <= 32768 candidates as order-preserving
+//                      keys into shared memory, finds the k-th largest by
+//                      a radix select (8 bits a pass, at most 4 passes),
 //                      keeps every candidate above it and the earliest ones
 //                      equal to it, and bitonic-sorts those k by (value
-//                      descending, position ascending).
+//                      descending, position ascending). Below the
+//                      crossover its one launch is the faster.
+//     runs             (runs) a merge of sorted runs over many CTAs, for
+//                      any S*kp. Precondition: each run is non-increasing
+//                      in value (-0 equal to +0), as the partial kernel's
+//                      splits, the shards' lists and a tree merge's two
+//                      lists all are. The output is cut into segments of
+//                      SEG = 256 ranks; two launches of grid (segments x
+//                      Q), 256 threads:
+//       cut_kernel     for the rank r that ends its segment, the count
+//                      c_s(r) that each run gives to the top r (the
+//                      co-rank; sum c_s = r). Because a run does not
+//                      increase, the r-th key lies between L = min over
+//                      runs of key(ceil(r/S) - 1) and U = max of
+//                      key(floor((r - 1)/S)); two binary searches a run
+//                      cut its window of keys in [L, U] (the keys above U
+//                      are all kept, the positions at or past r never),
+//                      and a radix select over the windows' keys alone
+//                      (held in shared memory where they fit, else read
+//                      again from L2 each pass), starting at the highest
+//                      bit in which L and U differ, finds the r-th key.
+//                      Binary searches inside the windows then count each
+//                      run's keys above it and equal to it; the equal
+//                      ones are given to the lowest runs first.
+//       place_kernel   the segment's entries are positions
+//                      [c_s(r0), c_s(r1)) of each run: at most 256, loaded
+//                      once, each placed at r0 plus its rank among them by
+//                      (key, then run, then position), counted against the
+//                      others in shared memory. No sort of k in one CTA.
+//                      The candidates stay in device memory (L2); a query's
+//                      work is a few binary searches a run and its window,
+//                      not its S*kp candidates.
 //
 // Output contract (that of _knn_kernel): values in descending order; equal
 // values ordered by lower slot first; a missing entry is -inf with a slot
@@ -113,8 +147,13 @@
 // operations at 495 TFLOP/s (1.25 ms at Q=256); with one pass, the
 // 2*Q*cap*d TF32 operations (0.42 ms at Q=256, under the read).
 //
-// Limits: 1 <= k <= 8192, d % 4 == 0, 16-byte aligned rows, splits*kp <=
-// 32768 merge candidates, PASSES in {1, 3}.
+// Bound of the merge: its inputs' kept entries read once and the [Q, k]
+// pair written once, 16*Q*k bytes at 3.35 TB/s. Its time is latency: a
+// chain of dependent L2 reads (the searches) a CTA.
+//
+// Limits: 1 <= k <= 8192, d % 4 == 0, 16-byte aligned rows, PASSES in
+// {1, 3}; the one-CTA merge S*kp <= 32768 candidates, the run merge
+// S <= 8192 runs and S*kp < 2^31.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -138,7 +177,10 @@ constexpr int MAX_PARTS = 8;      // CTAs that share a split
 constexpr int K_MAX = 8192;
 constexpr int ROW_GRANULE = 256;  // rows per split are a multiple of this
 constexpr int MERGE_THREADS = 256;
-constexpr int MERGE_MAX = 32768;
+constexpr int MERGE_MAX = 32768;  // candidates a query the one-CTA merge holds
+constexpr int SEG = MERGE_THREADS;  // ranks a run-merge CTA places: one a thread
+constexpr int RUNS_MAX = 8192;    // runs the run merge takes (shared counts a run)
+constexpr int WINDOW_KEYS = 16384;  // window keys a cut keeps in shared memory
 constexpr int SMEM_MAX = 232448;  // 227 KB a block may use
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -992,6 +1034,249 @@ size_t merge_smem_bytes(int C, int k) {
   return sizeof(unsigned long long) * p2 + sizeof(uint32_t) * (size_t)C;
 }
 
+// -- the run merge -----------------------------------------------------------
+
+// Two searches of a non-increasing run at once, so that their loads
+// overlap: the end of the prefix of positions [a0, a1) whose keys are
+// above x, and of [b0, b1) whose keys are at least y.
+__device__ __forceinline__ int2 prefix_ends(const float* __restrict__ run, int a0, int a1,
+                                            uint32_t x, int b0, int b1, uint32_t y) {
+  while (a0 < a1 || b0 < b1) {
+    const int am = (a0 + a1) >> 1, bm = (b0 + b1) >> 1;
+    const uint32_t ua = a0 < a1 ? fkey(run[am]) : 0u, ub = b0 < b1 ? fkey(run[bm]) : 0u;
+    if (a0 < a1) {
+      if (ua > x) a0 = am + 1;
+      else a1 = am;
+    }
+    if (b0 < b1) {
+      if (ub >= y) b0 = bm + 1;
+      else b1 = bm;
+    }
+  }
+  return make_int2(a0, b0);
+}
+
+// a block-wide reduction of the run merge's threads by `op`; `ws` is 8
+// words of shared memory, free again when it returns
+template <class F>
+__device__ uint32_t block_reduce(uint32_t v, F op, uint32_t* ws) {
+  for (int off = 16; off > 0; off >>= 1) v = op(v, __shfl_xor_sync(FULL, v, off));
+  if ((threadIdx.x & 31) == 0) ws[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = ws[0];
+  for (int w = 1; w < MERGE_THREADS / 32; ++w) v = op(v, ws[w]);
+  __syncthreads();
+  return v;
+}
+
+// a[0..n) (shared, written before a barrier) to its exclusive prefix sums
+// and a[n] to their total, which it returns; each thread takes a
+// contiguous range
+__device__ int block_scan(int* a, int n, uint32_t* ws) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = (n + MERGE_THREADS - 1) / MERGE_THREADS;
+  const int b = min(n, (int)threadIdx.x * per), e = min(n, b + per);
+  int sum = 0;
+  for (int i = b; i < e; ++i) sum += a[i];
+  int incl = sum;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int u = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += u;
+  }
+  if (lane == 31) ws[warp] = (uint32_t)incl;
+  __syncthreads();
+  int run = incl - sum, total = 0;
+  for (int w = 0; w < MERGE_THREADS / 32; ++w) {
+    if (w < warp) run += (int)ws[w];
+    total += (int)ws[w];
+  }
+  for (int i = b; i < e; ++i) {
+    const int x = a[i];
+    a[i] = run;
+    run += x;
+  }
+  if (threadIdx.x == 0) a[n] = total;
+  __syncthreads();
+  return total;
+}
+
+// the run that holds flat position f < off[S] of the runs' ranges laid end
+// to end (off: their exclusive prefix sums)
+__device__ __forceinline__ int run_of(const int* off, int S, int f) {
+  int lo = 0, hi = S - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (off[mid] <= f) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+size_t cut_smem_bytes(int S) {
+  return sizeof(int) * (3 * (size_t)S + 1) + sizeof(uint32_t) * WINDOW_KEYS;
+}
+
+// The co-rank of the rank r = min(k, (blockIdx.x + 1) * SEG) of query
+// blockIdx.y: cuts[q][blockIdx.x][s] = the entries of run s among the top
+// r in the order (key descending, run, position).
+__global__ void __launch_bounds__(MERGE_THREADS)
+cut_kernel(const float* __restrict__ part_v, int Q, int S, int kp, int k, int* __restrict__ cuts) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* hi = reinterpret_cast<int*>(smem_raw);  // [S] a run's window start (keys above U before it)
+  int* lo = hi + S;                            // [S] its end (keys below L, or position r, from it)
+  int* off = lo + S;                           // [S + 1] the windows' offsets, then the ties'
+  uint32_t* win = reinterpret_cast<uint32_t*>(off + S + 1);  // [WINDOW_KEYS] the windows' keys
+  __shared__ uint32_t hist[256];
+  __shared__ uint32_t ws[MERGE_THREADS / 32];
+  __shared__ uint32_t s_prefix;
+  __shared__ int s_need, s_whole;
+  const int tid = threadIdx.x, lane = tid & 31, q = blockIdx.y;
+  const int r = min(k, ((int)blockIdx.x + 1) * SEG);
+  // key(a) of every run is at least the r-th key and key(b) of some run at
+  // most it; a run gives nothing at or past position r
+  const int a = (r + S - 1) / S - 1, b = (r - 1) / S, end = min(kp, r);
+  auto run = [&](int s) { return part_v + ((size_t)s * Q + q) * kp; };
+
+  // the r-th key lies in [L, U]
+  uint32_t mn = ~0u, mx = 0u;
+  for (int s = tid; s < S; s += MERGE_THREADS) {
+    const float* x = run(s);
+    mn = min(mn, fkey(x[a]));
+    mx = max(mx, fkey(x[b]));
+  }
+  const uint32_t L = block_reduce(mn, [](uint32_t u, uint32_t v) { return min(u, v); }, ws);
+  const uint32_t U = block_reduce(mx, [](uint32_t u, uint32_t v) { return max(u, v); }, ws);
+
+  // each run's window [hi, lo): its keys in [L, U] before position r; the
+  // keys above U are all kept
+  int above = 0;
+  for (int s = tid; s < S; s += MERGE_THREADS) {
+    const int2 e = prefix_ends(run(s), 0, b, U, a + 1, end, L);
+    hi[s] = e.x;
+    lo[s] = e.y;
+    off[s] = e.y - e.x;
+    above += e.x;
+  }
+  above = (int)block_reduce((uint32_t)above, [](uint32_t u, uint32_t v) { return u + v; }, ws);
+  const int W = block_scan(off, S, ws);
+  const bool held = W <= WINDOW_KEYS;
+  auto load = [&](int f) {
+    const int s = run_of(off, S, f);
+    return fkey(run(s)[hi[s] + f - off[s]]);
+  };
+  if (held) {
+#pragma unroll 4
+    for (int f = tid; f < W; f += MERGE_THREADS) win[f] = load(f);
+    __syncthreads();
+  }
+
+  // the r-th key, the need-th of the windows' keys: a radix select, 8 bits
+  // a pass from the highest bit in which L and U differ (every window key
+  // shares the bits above it), over the keys in shared memory or, when
+  // they do not fit, read again each pass; it stops once every key of the
+  // chosen bin is needed (`whole`)
+  int need = r - above;
+  uint32_t prefix = L;
+  bool whole = false;
+  if (L != U) {
+    int top = 31 - __clz(L ^ U);
+    uint32_t mask = top == 31 ? 0u : ~0u << (top + 1);
+    prefix = L & mask;
+    while (top >= 0) {
+      const int shift = top > 7 ? top - 7 : 0;
+      const uint32_t digit = (1u << (top - shift + 1)) - 1;
+      hist[tid] = 0;  // MERGE_THREADS == 256 bins
+      __syncthreads();
+      for (int f = tid; f < W; f += MERGE_THREADS) {
+        const uint32_t u = held ? win[f] : load(f);
+        if ((u & mask) == prefix) atomicAdd(&hist[(u >> shift) & digit], 1u);
+      }
+      __syncthreads();
+      if (tid < 32) {
+        // lane l sums bins 255-8l .. 248-8l (top first)
+        int cnt[8], sum = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) { cnt[j] = (int)hist[255 - 8 * lane - j]; sum += cnt[j]; }
+        int incl = sum;
+        for (int o = 1; o < 32; o <<= 1) {
+          const int u = __shfl_up_sync(FULL, incl, o);
+          if (lane >= o) incl += u;
+        }
+        const int owner = __ffs(__ballot_sync(FULL, incl >= need)) - 1;
+        if (lane == owner) {
+          int up = incl - sum, j = 0;
+          while (up + cnt[j] < need) up += cnt[j++];
+          s_prefix = prefix | ((uint32_t)(255 - 8 * lane - j) << shift);
+          s_need = need - up;
+          s_whole = cnt[j] == need - up;
+        }
+      }
+      __syncthreads();
+      prefix = s_prefix;
+      need = s_need;
+      whole = s_whole;
+      mask |= digit << shift;
+      top = shift - 1;
+      if (whole) break;
+    }
+  }
+
+  // each run's count: its window keys above the r-th key, then those equal
+  // to it, the lowest runs first; with a whole bin, every key at or above
+  // its least value (prefix)
+  for (int s = tid; s < S; s += MERGE_THREADS) {
+    const int2 e = prefix_ends(run(s), hi[s], lo[s], prefix, hi[s], lo[s], prefix);
+    hi[s] = e.x;               // above the r-th key
+    off[s] = e.y - e.x;        // equal to it
+  }
+  __syncthreads();
+  if (!whole) block_scan(off, S, ws);
+  int* out = cuts + ((size_t)q * gridDim.x + blockIdx.x) * S;
+  for (int s = tid; s < S; s += MERGE_THREADS)
+    out[s] = hi[s] + (whole ? off[s] : min(off[s + 1] - off[s], max(0, need - off[s])));
+}
+
+// Segment blockIdx.x of query blockIdx.y: ranks r0 = blockIdx.x * SEG up to
+// SEG more, the entries [cut of the segment before, cut of this one) of
+// each run, each placed by its rank among them.
+__global__ void __launch_bounds__(MERGE_THREADS)
+place_kernel(const float* __restrict__ part_v, const int* __restrict__ part_i, int Q, int S,
+             int kp, int k, const int* __restrict__ cuts, float* __restrict__ out_v,
+             int* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* off = reinterpret_cast<int*>(smem_raw);  // [S + 1] the segment's ranges of the runs
+  __shared__ unsigned long long comp[SEG];
+  __shared__ uint32_t ws[MERGE_THREADS / 32];
+  const int tid = threadIdx.x, g = blockIdx.x, q = blockIdx.y;
+  const int r0 = g * SEG;
+  const int* c1 = cuts + ((size_t)q * gridDim.x + g) * S;
+  const int* c0 = g ? c1 - S : nullptr;
+  for (int s = tid; s < S; s += MERGE_THREADS) off[s] = max(0, c1[s] - (g ? c0[s] : 0));
+  __syncthreads();
+  // the bounds keep a run that increases (a broken precondition) from
+  // reading or writing out of range; its output is then undefined
+  const int n = min(min(k, r0 + SEG) - r0, block_scan(off, S, ws));
+  size_t o = 0;
+  float v = 0.f;
+  if (tid < n) {
+    const int s = run_of(off, S, tid);
+    const int j = min(kp - 1, (g ? c0[s] : 0) + tid - off[s]);
+    o = ((size_t)s * Q + q) * kp + j;
+    v = part_v[o];
+    // (key, then the earlier run and position first), as in merge_kernel
+    comp[tid] = ((unsigned long long)fkey(v) << 32) | (0xffffffffu - (uint32_t)(s * kp + j));
+  }
+  __syncthreads();
+  if (tid < n) {
+    const unsigned long long x = comp[tid];
+    int rank = 0;
+    for (int i = 0; i < n; ++i) rank += comp[i] > x;
+    const size_t w = (size_t)q * k + r0 + rank;
+    out_v[w] = v;
+    out_i[w] = part_i[o];
+  }
+}
+
 // cuTensorMapEncodeTiled, a driver-API call, reached through the runtime
 // (no link against libcuda)
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1068,6 +1353,8 @@ extern "C" {
 int fused_knn_k_max() { return K_MAX; }
 int fused_knn_row_granule() { return ROW_GRANULE; }
 int fused_knn_merge_max() { return MERGE_MAX; }
+int fused_knn_merge_segment() { return SEG; }
+int fused_knn_runs_max() { return RUNS_MAX; }
 int fused_knn_capacity(int k) { return capacity(k); }
 long long fused_knn_partial_smem(int nq, int stages, int k, int smem_buffers, int passes) {
   return (long long)partial_smem_bytes(nq, stages, k, smem_buffers != 0, passes);
@@ -1076,9 +1363,9 @@ long long fused_knn_partial_smem(int nq, int stages, int k, int smem_buffers, in
 // All pointers are device pointers; `stream` is a cudaStream_t. `nq` and
 // `passes` pick the instance (8, 16, 32 or 64 queries a CTA; 3 TF32 passes
 // for precision "highest", 1 for "default"), `parts` the CTAs that share a
-// split's rows (at most 8, parts * k <= 32768), `stages` the ring depth
-// (4..8); `qs` is [2, Q, D] f32 scratch for the split queries (hi and lo;
-// [1, Q, D], hi alone, with one pass); `buf` is
+// split's rows (at most 8), `stages` the ring depth (4..8); `qs` is
+// [2, Q, D] f32 scratch for the split queries (hi and lo; [1, Q, D], hi
+// alone, with one pass); `buf` is
 // [ceil(Q/nq) * splits * parts, nq, capacity(k)] 64-bit scratch for the
 // candidate buffers, or null to keep them in shared memory; with parts > 1
 // `mbuf` is [ceil(Q/nq) * splits, nq, parts * k] 64-bit scratch for the
@@ -1090,7 +1377,7 @@ int fused_knn_partial(const float* q, float* qs, const float* db, const unsigned
                       unsigned long long* buf, unsigned long long* mbuf, int* arrived,
                       float* part_v, int* part_i, void* stream) {
   if (k < 1 || k > K_MAX || D % 4 || rows_per_split % ROW_GRANULE || parts < 1 ||
-      parts > MAX_PARTS || (long long)parts * k > MERGE_MAX || (parts > 1 && (!mbuf || !arrived)) ||
+      parts > MAX_PARTS || (parts > 1 && (!mbuf || !arrived)) ||
       stages < MIN_STAGES || stages > MAX_STAGES ||
       partial_smem_bytes(nq, stages, k, buf == nullptr, passes) > (size_t)SMEM_MAX ||
       (size_t)stages * stage_bytes(nq, passes) < 8 * (size_t)pow2_at_least(k))
@@ -1113,17 +1400,34 @@ int fused_knn_partial(const float* q, float* qs, const float* db, const unsigned
 #undef PARTIAL
 }
 
-// Merges [splits, Q, kp] partials into the k <= kp best per query.
+// Merges [splits, Q, kp] runs into the k <= kp best per query, taken in
+// run order: `design` 0 is the one-CTA merge (splits * kp <= 32768), 1 the
+// run merge (each run non-increasing in value; splits <= 8192, splits * kp
+// < 2^31), which needs `cuts`, [Q, ceil(k / 256), splits] int32 scratch.
 int fused_knn_merge(const float* part_v, const int* part_i, int Q, int splits, int kp,
-                    int k, float* out_v, int* out_i, void* stream) {
-  if (k < 1 || k > kp || splits < 1 || (long long)splits * kp > MERGE_MAX)
+                    int k, int design, int* cuts, float* out_v, int* out_i, void* stream) {
+  if (k < 1 || k > kp || splits < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (design == 0) {
+    if ((long long)splits * kp > MERGE_MAX) return (int)cudaErrorInvalidValue;
+    const size_t smem = merge_smem_bytes(splits * kp, k);
+    cudaError_t err = cudaFuncSetAttribute(
+        merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    merge_kernel<<<Q, MERGE_THREADS, smem, s>>>(part_v, part_i, Q, splits, kp, k, out_v, out_i);
+    return (int)cudaGetLastError();
+  }
+  if (design != 1 || splits > RUNS_MAX || (long long)splits * kp >= (1ll << 31) || !cuts)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = merge_smem_bytes(splits * kp, k);
+  const dim3 grid((k + SEG - 1) / SEG, Q);
+  const size_t cut_smem = cut_smem_bytes(splits), place_smem = sizeof(int) * (splits + 1);
   cudaError_t err = cudaFuncSetAttribute(
-      merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cut_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cut_smem);
   if (err != cudaSuccess) return (int)err;
-  merge_kernel<<<Q, MERGE_THREADS, smem, (cudaStream_t)stream>>>(part_v, part_i, Q, splits, kp,
-                                                                 k, out_v, out_i);
+  cut_kernel<<<grid, MERGE_THREADS, cut_smem, s>>>(part_v, Q, splits, kp, k, cuts);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  place_kernel<<<grid, MERGE_THREADS, place_smem, s>>>(part_v, part_i, Q, splits, kp, k, cuts,
+                                                       out_v, out_i);
   return (int)cudaGetLastError();
 }
 

@@ -18,9 +18,17 @@ scores, and a batched threshold selection through per-query candidate
 buffers. The wrapper picks the query tile and ring depth (``plan_tile``)
 so that a block's shared memory holds the ring and, where they fit, the
 buffers (else a scratch tensor holds them), the splits (``plan_splits``)
-so that about one CTA runs per SM and one merge block holds every
-candidate, and, where a large k caps the splits, the CTAs that share one
-split's rows (``plan_parts``).
+so that about one CTA runs per SM at every k, within a byte budget for
+the partial pass's output and scratch (``_SEARCH_BYTES``), and, where a
+small index leaves too few splits (each is at least 256 rows), the CTAs
+that share one split's rows (``plan_parts``).
+
+The merge takes the k best of the splits' sorted lists (runs) in split
+order, in one of two designs by size (``merge_design``): up to
+``_MERGE_CROSSOVER`` candidates a query, one CTA a query that holds them
+all in shared memory; above it, a merge of sorted runs over many CTAs
+(co-ranks of each 256-rank output segment by binary searches, then each
+segment placed by rank), which has no cap on the candidates.
 
 The partial kernel has two instances by ``precision``: ``"highest"``
 (3xTF32, fp32-accurate: the JAX package's ``Precision.HIGHEST``) and
@@ -57,7 +65,24 @@ from pathway_tpu_torch.ops.topk import check_precision, chunked_topk_scores
 
 K_MAX = 8192    # the largest k, the JAX index's clamp (csrc K_MAX)
 _TN = 256       # rows per split are a multiple of this (csrc ROW_GRANULE)
-_MERGE_MAX = 32768  # merge candidates per query, splits * k (csrc MERGE_MAX)
+# the one-CTA merge holds at most this many candidates a query (csrc
+# MERGE_MAX); the run merge places 256 ranks a CTA (csrc SEG) and takes at
+# most 8192 runs (csrc RUNS_MAX)
+_BLOCK_MERGE_MAX = 32768
+_SEG = 256
+_RUNS_MAX = 8192
+# the one-CTA merge is used up to this many candidates a query and k up
+# to an eighth of it: there its one launch is the faster; above either
+# the run merge is (its cost grows with the candidates and its bitonic
+# sort of k; PERF.md, chip_smoke.py merge_designs)
+_MERGE_CROSSOVER = 2048
+# device bytes a search's partial pass may allocate: its [splits, Q, k]
+# output pair and the candidate buffers that do not fit in shared memory.
+# One GiB holds every chip_smoke.py case at one split a SM (the largest,
+# Q = 1 at k = 8192, takes 144 MB) and is two thirds of a 2^20 x 384 f32
+# index; where Q * k is large it lowers the splits (Q = 256 at k = 8192:
+# 21 of 33, where they would take 1.67 GB)
+_SEARCH_BYTES = 1 << 30
 _TILES = (8, 16, 32, 64)  # query-tile instances (wgmma N) of the partial kernel
 _SMEM_MAX = 232448  # shared memory one block may use on Hopper (227 KB)
 # geometry of the partial kernel (csrc TM, ROW_BYTES, MIN/MAX_STAGES,
@@ -74,8 +99,9 @@ PASSES = {"highest": 3, "default": 1}
 _KERNEL = {"highest": "fused_knn", "default": "fused_knn_tf32"}
 
 # launches of each kernel, counted where the wrapper launches it: the
-# partial kernel's 3xTF32 and one-pass instances apart, and the merge
-LAUNCHES = {"fused_knn": 0, "fused_knn_tf32": 0, "topk_merge": 0}
+# partial kernel's 3xTF32 and one-pass instances apart, and the merge's two
+# designs apart (the one-CTA merge, and the run merge's pair of kernels)
+LAUNCHES = {"fused_knn": 0, "fused_knn_tf32": 0, "topk_merge": 0, "topk_merge_runs": 0}
 # shape buckets met by the pair's site, ``knn.fused`` (the JAX package's
 # ``pallas.topk``)
 _SEEN_BUCKETS: set = set()
@@ -144,7 +170,7 @@ def _lib() -> ctypes.CDLL:
             _P, _P, _P, _P, _P, _P,
         ]
         lib.fused_knn_partial.restype = _I
-        lib.fused_knn_merge.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P]
+        lib.fused_knn_merge.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]
         lib.fused_knn_merge.restype = _I
         lib.fused_knn_partial_smem.argtypes = [_I, _I, _I, _I, _I]
         lib.fused_knn_partial_smem.restype = ctypes.c_longlong
@@ -152,7 +178,9 @@ def _lib() -> ctypes.CDLL:
         consts = [
             (lib.fused_knn_k_max, (), K_MAX),
             (lib.fused_knn_row_granule, (), _TN),
-            (lib.fused_knn_merge_max, (), _MERGE_MAX),
+            (lib.fused_knn_merge_max, (), _BLOCK_MERGE_MAX),
+            (lib.fused_knn_merge_segment, (), _SEG),
+            (lib.fused_knn_runs_max, (), _RUNS_MAX),
         ] + [
             (lib.fused_knn_capacity, (k,), capacity(k)) for k in (1, 10, 200, 8192)
         ] + [
@@ -241,13 +269,28 @@ def plan_tile(q: int, k: int, precision: str = "highest") -> Tile:
     return Tile(n, stages, smem_buffers, passes)
 
 
+def partial_bytes(q: int, k: int, splits: int, parts: int = 1) -> int:
+    """Device bytes the partial pass allocates for ``splits`` splits of
+    ``parts`` CTAs: the ``[splits, q, k]`` output pair, where
+    ``plan_tile``'s "highest" tile keeps them out of shared memory a
+    candidate buffer a CTA (a "default" tile, whose stages are smaller,
+    keeps them in shared memory wherever this one does), and with parts
+    the lists they hand to the last of them."""
+    tile = plan_tile(q, k)
+    tiled = _cdiv(q, tile.n) * tile.n
+    buffers = 0 if tile.smem_buffers else parts * tiled * capacity(k)
+    handed = tiled * parts * k if parts > 1 else 0
+    return 8 * splits * (q * k + buffers + handed)
+
+
 @functools.lru_cache(maxsize=1024)
 def plan_splits(q: int, cap: int, k: int, n_sm: int) -> tuple[int, int]:
     """(rows per split, splits): about one CTA per SM over the query tiles
-    (a CTA fills its SM), each split a whole number of 256-row granules,
-    and no more than ``_MERGE_MAX`` merge candidates per query."""
+    (a CTA fills its SM) at every k, each split a whole number of 256-row
+    granules, and the partial pass's bytes (``partial_bytes``) within
+    ``_SEARCH_BYTES``."""
     want = n_sm // _cdiv(q, plan_tile(q, k).n)
-    want = max(1, min(want, _MERGE_MAX // k, _cdiv(cap, _TN)))
+    want = max(1, min(want, _SEARCH_BYTES // partial_bytes(q, k, 1), _cdiv(cap, _TN)))
     rows = _cdiv(_cdiv(cap, want), _TN) * _TN
     return rows, _cdiv(cap, rows)
 
@@ -255,12 +298,24 @@ def plan_splits(q: int, cap: int, k: int, n_sm: int) -> tuple[int, int]:
 @functools.lru_cache(maxsize=1024)
 def plan_parts(q: int, splits: int, rows: int, k: int, n_sm: int) -> int:
     """CTAs that share one split's rows: where the splits leave SMs idle
-    (a large k allows at most 32768 // k of them), up to that many CTAs (at
-    most 8) scan a split, each a whole number of 128-row tiles, and the
-    last to finish cuts their lists (``parts * k`` candidates) to the
-    split's k best."""
+    (an index of fewer than 256 rows an SM), up to that many CTAs (at most
+    8, and within ``_SEARCH_BYTES``) scan a split, each a whole number of
+    128-row tiles, and the last to finish cuts their lists (``parts * k``
+    candidates) to the split's k best."""
     ctas = _cdiv(q, plan_tile(q, k).n) * splits
-    return max(1, min(n_sm // ctas, _MAX_PARTS, _MERGE_MAX // k, _cdiv(rows, _TM)))
+    parts = max(1, min(n_sm // ctas, _MAX_PARTS, _cdiv(rows, _TM)))
+    while parts > 1 and partial_bytes(q, k, splits, parts) > _SEARCH_BYTES:
+        parts -= 1
+    return parts
+
+
+def merge_design(splits: int, kp: int, k: int) -> str:
+    """The merge's design for the k best of ``splits`` runs of ``kp``:
+    "block" (one CTA a query, its candidates in shared memory) up to
+    ``_MERGE_CROSSOVER`` candidates a query and k up to an eighth of that,
+    else "runs" (the merge of sorted runs over many CTAs)."""
+    small = splits * kp <= _MERGE_CROSSOVER and 8 * k <= _MERGE_CROSSOVER
+    return "block" if small else "runs"
 
 
 def _check(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
@@ -378,11 +433,16 @@ def knn_partial(queries, database, valid, k, rows, *, sq_norms=None,
     return part_v, part_i
 
 
-def topk_merge(part_v, part_i, k):
-    """Merge pass: the k best per query of ``[splits, Q, k']`` partials,
-    taken in split order. A CUDA tensor launches the kernel; a CPU tensor
-    runs the plain version, and so does a meta tensor (no data: the Device
-    Doctor's shape-only trace of the sharded search)."""
+def topk_merge(part_v, part_i, k, *, design=None):
+    """Merge pass: the k best per query of ``[splits, Q, k']`` runs, taken
+    in run order (ties to the earlier run, then the earlier position).
+    Precondition: each run ``part_v[s, q]`` is non-increasing in value
+    (-0.0 counts as +0.0), as the partial pass's splits, the shards' lists
+    and ``merge_pair``'s two lists are; the run merge's answer is
+    undefined otherwise. ``design`` is "block" or "runs" (None: by
+    ``merge_design``). A CUDA tensor launches the kernels; a CPU tensor
+    runs the plain version, and so does a meta tensor (no data: the
+    Device Doctor's shape-only trace of the sharded search)."""
     if part_v.device.type in ("cpu", "meta"):
         return topk_merge_plain(part_v, part_i, k)
     dev = part_v.device
@@ -393,20 +453,32 @@ def topk_merge(part_v, part_i, k):
     splits, Q, kp = part_v.shape
     if part_i.shape != part_v.shape or not 1 <= k <= kp:
         raise ValueError(f"cannot merge {tuple(part_v.shape)} partials to k={k}")
-    if splits * kp > _MERGE_MAX:
-        raise ValueError(f"at most {_MERGE_MAX} merge candidates per query")
+    design = design or merge_design(splits, kp, k)
+    if design not in ("block", "runs"):
+        raise ValueError(f"unknown merge design {design!r}")
+    if design == "block" and splits * kp > _BLOCK_MERGE_MAX:
+        raise ValueError(f"the one-CTA merge takes at most {_BLOCK_MERGE_MAX} "
+                         f"candidates a query, got {splits * kp}")
+    if design == "runs" and (splits > _RUNS_MAX or splits * kp >= 1 << 31):
+        raise ValueError(f"the run merge takes at most {_RUNS_MAX} runs and "
+                         f"2^31 candidates a query, got {splits} of {kp}")
     out_v = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0 or splits == 0:
         return out_v.fill_(float("-inf")), out_i.zero_()
+    # the run merge's co-ranks: each query's cut of every run at the end of
+    # each 256-rank output segment
+    cuts = None if design == "block" else torch.empty(
+        (Q, _cdiv(k, _SEG), splits), dtype=torch.int32, device=dev)
     err = _launch(
         dev, _lib().fused_knn_merge,
         part_v.data_ptr(), part_i.data_ptr(), Q, splits, kp, k,
+        int(design == "runs"), None if cuts is None else cuts.data_ptr(),
         out_v.data_ptr(), out_i.data_ptr(),
     )
     if err:
         raise RuntimeError(f"fused_knn merge launch failed: cudaError {err}")
-    LAUNCHES["topk_merge"] += 1
+    LAUNCHES["topk_merge" if design == "block" else "topk_merge_runs"] += 1
     return out_v, out_i
 
 

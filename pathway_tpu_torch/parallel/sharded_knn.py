@@ -49,7 +49,6 @@ from pathway_tpu_torch.internals.device import (
 from pathway_tpu_torch.internals.faults import fault_point
 from pathway_tpu_torch.ops.fused_knn import (
     K_MAX,
-    _MERGE_MAX,
     _TN,
     fused_topk_scores,
     topk_merge,
@@ -120,22 +119,13 @@ def _pad_to(vals, idx, k: int):
 
 def gather_merge_topk(vals, idx, k: int):
     """Global top-k of the shards' partials taken in shard order, ties to
-    the lower shard: the merge kernel over the stacked lists on the first
-    partial's device (the plain merge on the CPU). Lists wider than one
-    merge holds (``_MERGE_MAX`` candidates a query) merge in consecutive
-    groups first, which keeps the order."""
+    the lower shard: one merge kernel over the stacked lists on the first
+    partial's device (the plain merge on the CPU). Each list is sorted
+    (values descending), the merge's precondition."""
     dev = vals[0].device
     vals = [_pad_to(v, i, k) for v, i in zip(vals, idx)]
     v = torch.stack([to_device_after(a, dev) for a, _ in vals])
     i = torch.stack([to_device_after(b, dev) for _, b in vals])
-    group = max(2, _MERGE_MAX // k)
-    while v.shape[0] > group:
-        parts = [
-            topk_merge(v[g:g + group], i[g:g + group], k)
-            for g in range(0, v.shape[0], group)
-        ]
-        v = torch.stack([a for a, _ in parts])
-        i = torch.stack([b for _, b in parts])
     return topk_merge(v, i, k)
 
 

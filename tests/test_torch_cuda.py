@@ -60,6 +60,11 @@ def _bound1(q, db, pi, k, metric):
     return 2.0 ** -4 * (q.shape[1] + 32) * _bound(q, db, pi, k, metric)
 
 
+def _merges():
+    """Merge launches so far, of either design."""
+    return fused_knn.LAUNCHES["topk_merge"] + fused_knn.LAUNCHES["topk_merge_runs"]
+
+
 def _check(v, i, pv, pi, k, bound=None):
     torch.cuda.synchronize()
     fin = torch.isfinite(pv[:, :k])
@@ -163,10 +168,10 @@ def _vs_scan(gen, Q, N, D, k, metric="dot", valid_p=0.2):
 def test_large_k_matches_plain(gen, Q, N, k):
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     _, splits = fused_knn.plan_splits(Q, N, k, n_sm)
-    merges = fused_knn.LAUNCHES["topk_merge"]
+    merges = _merges()
     _vs_scan(gen, Q, N, 64, k)
     # one split: the partial is the answer and the merge is not launched
-    assert (fused_knn.LAUNCHES["topk_merge"] == merges) == (splits == 1)
+    assert (_merges() == merges) == (splits == 1)
 
 
 @pytest.mark.parametrize("D", [4, 36, 384])
@@ -203,18 +208,79 @@ def test_ragged_split_tail_with_exact_tie(gen):
 
 @pytest.mark.parametrize("splits,kp,k", [(32, 1024, 1024), (4, 8192, 8192), (132, 10, 10)])
 def test_merge_at_the_largest_plan(gen, splits, kp, k):
+    """The old cap's largest merges (splits * kp = 32768 and 1320
+    candidates) by both designs, each bit-equal to the plain merge."""
     Q = 3
-    assert splits * kp <= fused_knn._MERGE_MAX
     # few distinct values, so that ties are many; each split's list sorted
     v = torch.randint(0, 50, (splits, Q, kp), generator=gen, device="cuda").float()
     v[:, :, -3:] = float("-inf")
     v = torch.sort(v, dim=-1, descending=True).values.contiguous()
     i = torch.randint(0, 1 << 20, (splits, Q, kp), generator=gen, device="cuda",
                       dtype=torch.int32)
-    mv, mi = fused_knn.topk_merge(v, i, k)
     xv, xi = fused_knn.topk_merge_plain(v, i, k)
+    for design in ("block", "runs"):
+        mv, mi = fused_knn.topk_merge(v, i, k, design=design)
+        torch.cuda.synchronize()
+        assert torch.equal(mv, xv) and torch.equal(mi, xi), design
+
+
+def _runs(gen, splits, Q, k):
+    """[splits, Q, k] sorted runs with every hard case of the run merge:
+    few distinct values (ties across runs everywhere), -inf tails (the last
+    eighth of every run), a tie across the edge of runs 0 and 1 (run 0
+    ends in 7s, run 1 opens with them), and -0.0 beside +0.0 (half the
+    zeros negative)."""
+    v = torch.randint(-3, 40, (splits, Q, k), generator=gen, device="cuda").float()
+    v = torch.sort(v, dim=-1, descending=True).values
+    if splits > 1:
+        v[0] = v[0].clamp(min=7.0)
+        v[1] = v[1].clamp(max=7.0)
+        v[1, :, :3] = 7.0
+    v[..., k - max(1, k // 8):] = float("-inf")
+    neg = (v == 0) & (torch.rand(v.shape, generator=gen, device="cuda") < 0.5)
+    v = torch.where(neg, torch.full_like(v, -0.0), v).contiguous()
+    i = torch.randint(0, 1 << 20, (splits, Q, k), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    return v, i
+
+
+@pytest.mark.parametrize("Q", [1, 256])
+@pytest.mark.parametrize("splits,k", [(132, 8192), (132, 1024), (2, 10)])
+def test_merge_past_the_old_cap_is_bit_equal_to_plain(gen, splits, k, Q):
+    """Merges of up to 132 x 8192 candidates a query (the old one-CTA cap
+    was 32768) in the design the wrapper picks, bit-equal to the plain
+    merge: against the card's plain merge over the same runs with -0.0 made
+    +0.0 (values compared as numbers), and bit for bit against the CPU's
+    plain merge for the first and last query."""
+    v, i = _runs(gen, splits, Q, k)
+    design = fused_knn.merge_design(splits, k, k)
+    assert design == ("block" if splits * k <= fused_knn._MERGE_CROSSOVER else "runs")
+    assert (splits * k > fused_knn._BLOCK_MERGE_MAX) <= (design == "runs")
+    before = dict(fused_knn.LAUNCHES)
+    mv, mi = fused_knn.topk_merge(v, i, k)
+    name = "topk_merge" if design == "block" else "topk_merge_runs"
+    assert fused_knn.LAUNCHES[name] == before[name] + 1
+    xv, xi = fused_knn.topk_merge_plain(v + 0.0, i, k)
     torch.cuda.synchronize()
-    assert torch.equal(mv, xv) and torch.equal(mi, xi)
+    assert torch.equal(mi, xi) and torch.equal(mv, xv)
+    rows = [0, Q - 1]
+    cv, ci = fused_knn.topk_merge_plain(v[:, rows].cpu(), i[:, rows].cpu(), k)
+    assert torch.equal(mi[rows].cpu(), ci)
+    assert torch.equal(mv[rows].cpu().view(torch.int32), cv.view(torch.int32))
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_pair_at_k_8192_past_the_old_cap(gen, precision):
+    """The pair at Q = 1, k = 8192 on a 2^18-row index: about one split
+    a SM (the old cap allowed 4), each split's partial against its plain
+    version, the run merge, and the answer against the plain scan."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    _, splits = fused_knn.plan_splits(1, 1 << 18, 8192, n_sm)
+    assert splits * 8192 > fused_knn._BLOCK_MERGE_MAX and splits >= n_sm * 3 // 4
+    before = fused_knn.LAUNCHES["topk_merge_runs"]
+    _edge_case(gen, 1, 1 << 18, 64, 8192, ties=(5, 1 << 17, (1 << 18) - 1),
+               precision=precision)
+    assert fused_knn.LAUNCHES["topk_merge_runs"] == before + 1
 
 
 # -- the partial kernel's edges: wgmma N padding, query tiles, the buffers ------
@@ -443,7 +509,7 @@ def test_sharded_matches_single_on_the_card(gen, monkeypatch, merge, Q, k):
     assert got == want
     assert [key for key, _ in got[0][:3]] == sorted(ties, key=single.key_seq.get)
     assert fused_knn.LAUNCHES["fused_knn"] - before["fused_knn"] >= 5
-    assert fused_knn.LAUNCHES["topk_merge"] > before["topk_merge"]
+    assert _merges() > before["topk_merge"] + before["topk_merge_runs"]
 
 
 def test_tree_merge_runs_the_merge_kernel(gen):

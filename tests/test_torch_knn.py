@@ -92,7 +92,10 @@ def test_split_and_merge_plain_matches_scan(n_sm, k, metric):
     args = (torch.from_numpy(queries), torch.from_numpy(db), torch.from_numpy(valid))
     rows, splits = fused_knn.plan_splits(40, 4096, k, n_sm)
     assert rows % 256 == 0 and (splits - 1) * rows < 4096 <= splits * rows
-    assert splits * k <= fused_knn._MERGE_MAX
+    # one wave, the partial pass's bytes within the budget
+    tiles = -(-40 // fused_knn.plan_tile(40, k).n)
+    assert tiles * splits <= max(n_sm, tiles)
+    assert fused_knn.partial_bytes(40, k, splits) <= fused_knn._SEARCH_BYTES
     part_v, part_i = fused_knn.knn_partial(*args, k, rows, sq_norms=sq, metric=metric)
     assert part_v.shape == (splits, 40, k)
     got_v, got_i = fused_knn.topk_merge(part_v, part_i, k)
@@ -144,12 +147,16 @@ def test_plan_fits_shared_memory_and_one_merge_block(q, k):
     assert fused_knn.capacity(k) >= k + fused_knn._TM
     assert tile.stages * (fused_knn._TM + 2 * tile.n) * 128 >= 8 * k
     rows, splits = fused_knn.plan_splits(q, 1 << 20, k, 132)
-    assert splits * k <= fused_knn._MERGE_MAX and rows % fused_knn._TN == 0
+    assert rows % fused_knn._TN == 0
     assert (splits - 1) * rows < 1 << 20 <= splits * rows
-    # about one CTA per SM, never more than one wave
-    assert -(-q // tile.n) * splits <= max(132, -(-q // tile.n))
+    assert fused_knn.partial_bytes(q, k, splits) <= fused_knn._SEARCH_BYTES
+    # about one CTA per SM at every k (no cap of splits * k), never more
+    # than one wave
+    tiles = -(-q // tile.n)
+    assert tiles * splits <= max(132, tiles)
+    assert tiles * splits >= 100
     if (q, k) == (32, 1024):  # one query tile: the index is read once per split
-        assert tile.n == 32 and splits == 32
+        assert tile.n == 32 and splits == 128
 
 
 def test_short_split_pads_missing_entries():

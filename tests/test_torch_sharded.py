@@ -180,13 +180,26 @@ def test_tree_merge_matches_the_jax_butterfly():
 
 
 def test_gather_merge_in_groups_keeps_shard_order(monkeypatch):
-    """Lists wider than one merge holds merge in consecutive groups."""
+    """16 shards in one merge keep shard order: one merge call over every
+    shard's list (no groups), ties to the lower shard, equal to the
+    stable sort of the lists laid end to end and to the tree merge."""
     rng = np.random.default_rng(3)
-    vals, idx = _partials(rng, 8, 4, 6)
-    want = sk.gather_merge_topk(vals, idx, 6)
-    monkeypatch.setattr(sk, "_MERGE_MAX", 12)  # two lists per merge
+    vals, idx = _partials(rng, 16, 4, 6)
+    calls = []
+
+    def counting(v, i, k):
+        calls.append(tuple(v.shape))
+        return fused_knn.topk_merge(v, i, k)
+
+    monkeypatch.setattr(sk, "topk_merge", counting)
     got = sk.gather_merge_topk(vals, idx, 6)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert calls == [(16, 4, 6)]
+    flat_v, flat_i = torch.cat(vals, -1), torch.cat(idx, -1)
+    top, pos = torch.sort(flat_v, dim=-1, descending=True, stable=True)
+    assert torch.equal(got[0], top[:, :6])
+    assert torch.equal(got[1], torch.gather(flat_i, -1, pos[:, :6]))
+    tv, ti = tree_merge_topk(vals, idx, 6)
+    assert torch.equal(got[0], tv) and torch.equal(got[1], ti)
 
 
 def test_merge_topk_is_the_two_list_step():
