@@ -6,7 +6,10 @@
 Phases (each prints one JSON line; any failure exits non-zero):
 
 1. build    compile every kernel in ``pathway_tpu_torch/csrc`` with nvcc
-            (in parallel) and print the card's name and power limit;
+            (in parallel) and print the card's name and power limit; the
+            ``partial_usage`` line: each partial-kernel instance's
+            registers and ptxas's spill bytes, the k <= 32 ones held to
+            the parent tree's (``PARENT_PARTIAL_USAGE``);
 2. kernels  hold each kernel against its plain PyTorch version on the card
             at the main path's shapes (cap = 2^20 rows, d = 384, k = 10,
             Q in {1, 32, 256}, Q = 32 at k = 1024 and Q = 1 at k = 8192;
@@ -25,7 +28,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
             one-pass TF32 instance): partials within 3e-5 of the plain
             version, slots equal where its gap exceeds 6e-5, the merge bit
             for bit, the tie to the lower slot, and its times beside its
-            bound and a TF32 library yardstick;
+            bound and a TF32 library yardstick; the ``partial_sweep``
+            line: the partial kernel alone at one plan (128 splits of
+            8,192 rows) over k from 10 to 8192 at Q = 1 and 32, each point
+            against its plain version (runs that do not increase, values
+            within 1e-5, slots equal where the gap exceeds it);
 3. main     a bge-small ``SentenceEncoder(checkpoint=dir)``: the script
             writes a seeded checkpoint in the HF layout (config.json,
             pytorch_model.bin under BERT's parameter names, vocab.txt,
@@ -213,6 +220,25 @@ K = 10
 # (Q, k) of the kernels phase: the main path's k at three batch sizes,
 # a large k, and the largest (K_MAX: the largest candidate buffer)
 CASES = ((1, K), (32, K), (256, K), (32, 1024), (1, 8192))
+# the partial sweep: the partial kernel alone at one plan (128 splits of
+# 8,192 rows, the plan of Q = 1 and 32 at every k) over k, so that every
+# point reads the same bytes and what grows with k is each CTA's end: its
+# appends, selects and sort; the partials against the plain version within
+# SWEEP_ERR (3xTF32 on unit rows: 2^-19), slots equal where the gap exceeds it
+SWEEP_ROWS = 8192
+SWEEP = tuple((q, k) for q in (1, 32) for k in (10, 64, 256, 1024, 2048, 4096, 8192))
+SWEEP_ERR = 1e-5
+# the k <= 32 partial-kernel instances' registers a thread and ptxas's
+# spill store and load bytes, keyed (queries a CTA, passes): those of the
+# kernel's one instance before the k > 32 end's sort (commit 9e71390, read
+# from its build log by scripts/torch_knn_ab.py on an H100), which the
+# k <= 32 instances keep by design. Built otherwise, the k = 10 partial
+# moved by up to 9 % (PERF.md); the smoke fails then, and a change that
+# means to move them re-times k = 10 with scripts/torch_knn_ab.py first
+PARENT_PARTIAL_USAGE = {
+    (8, 1): (152, 0, 0), (16, 1): (128, 0, 0), (32, 1): (151, 0, 0), (64, 1): (154, 0, 0),
+    (8, 3): (138, 0, 0), (16, 3): (168, 20, 48), (32, 3): (168, 36, 76), (64, 3): (167, 0, 0),
+}
 N_DOCS = 16384
 DOC_BATCH = 256
 N_CLIENTS = 64
@@ -409,6 +435,117 @@ def check_runs(part_v, what: str) -> None:
     precondition: each run non-increasing in value)."""
     if bool((part_v[..., 1:] > part_v[..., :-1]).any()):
         fail(f"a run handed to the merge increases ({what})")
+
+
+def ptxas_usage(log: str) -> dict[str, dict]:
+    """What ptxas reported (``-Xptxas -v``) for each function in a build
+    log: mangled name -> ``registers`` (entry functions), ``stack``,
+    ``spill_stores`` and ``spill_loads`` bytes. Empty without the log."""
+    import re
+
+    if not os.path.exists(log):
+        return {}
+    usage: dict[str, dict] = {}
+    entry = props = None
+    with open(log) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                entry = m.group(1)
+                usage.setdefault(entry, {})
+                continue
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                props = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m and props:
+                usage.setdefault(props, {}).update(
+                    stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                    spill_loads=int(m.group(3)))
+                props = None
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                usage[entry]["registers"] = int(m.group(1))
+                entry = None
+    return usage
+
+
+def partial_usage(build_dir: str) -> dict[tuple, dict]:
+    """Each partial-kernel instance's registers and stack and spill bytes
+    in the fused_knn build log under ``build_dir``, keyed (queries a CTA,
+    passes) and, where the kernel has the flag, whether it serves k > 32."""
+    import re
+
+    out = {}
+    for name, use in ptxas_usage(os.path.join(build_dir, "fused_knn.log")).items():
+        m = re.search(r"partial_kernelILi(\d+)ELi(\d+)E(?:Lb([01])E)?", name)
+        if m and "registers" in use:
+            key = (int(m.group(1)), int(m.group(2)))
+            out[key + ((m.group(3) == "1",) if m.group(3) else ())] = use
+    return out
+
+
+def phase_partial_usage() -> dict:
+    """Each partial-kernel instance's registers a thread and ptxas's
+    stack and spill bytes beside ``PARENT_PARTIAL_USAGE``, which the
+    k <= 32 instances must equal."""
+    from pathway_tpu_torch.ops import _build
+
+    usage = partial_usage(_build.BUILD_DIR)
+    if len(usage) != 16:
+        fail(f"the build log reports {len(usage)} partial-kernel instances, not 16")
+    rows = []
+    for (n, passes, wide), use in sorted(usage.items()):
+        parent = PARENT_PARTIAL_USAGE[(n, passes)]
+        rows.append({"queries_a_cta": n, "passes": passes, "k_above_32": wide, **use,
+                     "parent": dict(zip(("registers", "spill_stores", "spill_loads"), parent))})
+        if not wide and (use["registers"], use["spill_stores"], use["spill_loads"]) != parent:
+            fail(f"the k <= 32 partial instance ({n} queries, {passes} passes) uses "
+                 f"{use}, not the parent's {rows[-1]['parent']}")
+    out = {"phase": "partial_usage", "instances": rows}
+    emit(out)
+    return out
+
+
+def phase_partial_sweep(fk, seed: int) -> dict:
+    """The partial kernel alone over ``SWEEP`` at one plan ("highest"),
+    each point against its plain version: its runs must not increase, the
+    values within SWEEP_ERR, the missing entries and the clear slots equal."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    db = unit_rows(gen, CAP, DIM)
+    valid = torch.rand(CAP, generator=gen, device="cuda") > 0.01
+    rows = []
+    for Q, k in SWEEP:
+        q = unit_rows(gen, Q, DIM)
+        part_v, part_i = fk.knn_partial(q, db, valid, k, SWEEP_ROWS)
+        plain_v, plain_i = fk.knn_partial_plain(q, db, valid, k + 1, SWEEP_ROWS)
+        torch.cuda.synchronize()
+        check_runs(part_v, f"the sweep's partials at Q={Q}, k={k}")
+        fin = torch.isfinite(plain_v[..., :k])
+        if not torch.equal(torch.isfinite(part_v), fin):
+            fail(f"the sweep's partials disagree on missing entries at Q={Q}, k={k}")
+        err = torch.where(fin, (part_v - plain_v[..., :k]).abs(), 0.0).max().item()
+        if not err <= SWEEP_ERR:
+            fail(f"the sweep's partials off by {err} > {SWEEP_ERR} at Q={Q}, k={k}")
+        gap = plain_v[..., :-1] - plain_v[..., 1:]
+        inf = torch.full_like(gap[..., :1], float("inf"))
+        clear = (torch.minimum(torch.cat([inf, gap[..., :k - 1]], -1), gap) > SWEEP_ERR) & fin
+        if not torch.equal(part_i[clear], plain_i[..., :k][clear]):
+            fail(f"the sweep's slots disagree at Q={Q}, k={k}")
+        del part_v, part_i, plain_v, plain_i
+        rows.append({"Q": Q, "k": k, "max_abs_err": err, "partial_ms": cuda_ms(
+            lambda: fk.knn_partial(q, db, valid, k, SWEEP_ROWS), reps=10)})
+    out = {"phase": "partial_sweep", "precision": "highest", "cap": CAP, "d": DIM,
+           "rows_per_split": SWEEP_ROWS, "splits": -(-CAP // SWEEP_ROWS), "rows": rows}
+    emit(out)
+    del db, valid
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_merge_designs(fk, seed: int) -> dict:
@@ -3069,8 +3206,10 @@ def main() -> int:
     rates = peak_rates(kind)
     if rates is None:
         fail(f"no data-sheet peaks for {kind!r} in internals/device.py")
+    phase_partial_usage()
     kern = phase_kernels(fk, topk, rates, args.seed)
     phase_merge_designs(fk, args.seed)
+    phase_partial_sweep(fk, args.seed)
     ckpt = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"), "bge-small")
     written = write_checkpoint(ckpt, pt.EncoderConfig.bge_small(), args.seed + CKPT_SEED)
     main_launches, enc = phase_main(pt, fk, ckpt, written, args.seed)

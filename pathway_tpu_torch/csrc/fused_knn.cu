@@ -19,7 +19,11 @@
 //                      each hands its k best to a merge area and the last
 //                      to arrive (an atomic count) cuts the parts' lists
 //                      to the split's k best, so the output stays
-//                      [splits, Q, k].
+//                      [splits, Q, k]. A CTA ends by sorting each query's
+//                      live candidates with all its consumer warps (the
+//                      part's end, below). The kernel has two instances
+//                      for each tile and precision: k <= 32 (WIDE false),
+//                      whose end is one warp's registers, and k > 32.
 //     copies           one producer thread keeps cp.async.bulk.tensor (TMA)
 //                      loads in flight into a ring of 4-8 shared-memory
 //                      stages, each guarded by a full and an empty
@@ -79,10 +83,18 @@
 //                      keys in registers, else by a radix select (a
 //                      min/max pass, then 8-bit digits below the keys'
 //                      common prefix, finished by sorting the k-th's bin
-//                      aside once it is small). At the end the k survivors
-//                      are sorted by (value descending, slot ascending) --
-//                      in one warp's registers up to 32, else a bitonic
-//                      network in shared memory -- and written out. The
+//                      aside once it is small). At the end a query's n
+//                      live survivors (n <= k, fewer where its split had
+//                      fewer valid rows) are sorted by (value descending,
+//                      slot ascending) and written out, positions n .. k-1
+//                      as missing entries: for k <= 32 in one warp's
+//                      registers; above, a bitonic network of pow2(n) keys
+//                      (not pow2(k)) in registers with every consumer warp
+//                      at work (sort_live): a query of up to 1,024 keys is
+//                      one warp's, the warps side by side on the CTA's
+//                      queries, a larger one the whole CTA's, each warp
+//                      sorting its slice before the merges across slices,
+//                      in the ring's shared memory (free by then). The
 //                      buffers live in shared memory where NQ * C * 8
 //                      bytes fit beside a ring of 4 stages, else in a
 //                      scratch tensor the wrapper allocates. One selection
@@ -115,9 +127,12 @@
 //                      cut its window of keys in [L, U] (the keys above U
 //                      are all kept, the positions at or past r never),
 //                      and a radix select over the windows' keys alone
-//                      (held in shared memory where they fit, else read
-//                      again from L2 each pass), starting at the highest
-//                      bit in which L and U differ, finds the r-th key.
+//                      (held in shared memory; where they do not fit, a
+//                      bisection of [L, U] by key, counting the runs'
+//                      keys at or above its midpoint, narrows them first,
+//                      else they are read again from L2 each pass),
+//                      starting at the highest bit in which L and U
+//                      differ, finds the r-th key.
 //                      Binary searches inside the windows then count each
 //                      run's keys above it and equal to it; the equal
 //                      ones are given to the lowest runs first.
@@ -574,7 +589,250 @@ __device__ __noinline__ float warp_select(unsigned long long* b, int n, int k, u
   return fvalue(low);
 }
 
-template <int NQ, int PASSES>
+// The real keys of b[0..n) (those at or above 2^32: below are missing
+// entries) moved to its front in order, by one warp; returns their count.
+// Writes land at or below the positions read, on keys every lane has read
+// (as in warp_select's last pass).
+__device__ __forceinline__ int warp_compact(unsigned long long* b, int n, int lane) {
+  int w = 0;
+  for (int base = 0; base < n; base += 128) {
+    unsigned long long u[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int i = base + 32 * h + lane;
+      u[h] = i < n ? b[i] : 0ull;
+    }
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const bool real = (u[h] >> 32) != 0;
+      const unsigned bal = __ballot_sync(FULL, real);
+      if (real) b[w + __popc(bal & ((1u << lane) - 1))] = u[h];
+      w += __popc(bal);
+    }
+  }
+  __syncwarp();
+  return w;
+}
+
+// -- the part's end for k > 32: each query's live keys sorted ----------------
+//
+// A query's n <= k live keys (every real key is distinct: its slot is in
+// the low bits) are sorted by a bitonic network of pow2(n) keys, zeros
+// padding it (they sort last), and written as its answer, positions n ..
+// k-1 missing. Keys sit in registers, E a thread, thread t holding
+// positions t*E .. t*E + E-1 ("blocked"): strides below E are exchanges
+// in a thread's registers, strides below 32 E shuffles between lanes.
+// A query of at most WARP_SORT_MAX keys is one warp's (E <= 32), the warps
+// side by side on the CTA's queries; a larger one the whole CTA's (E =
+// pow2(n) / 256), one query after another: each warp sorts its slice of 32
+// E keys, then each merge across slices takes its strides of 32 E and
+// more in a transposed layout (thread t holding positions w*32E + 256m + t
+// of the eight slices w, m < E/8: those strides too are in its registers)
+// and the rest back in the blocked one. Layouts change through shared
+// memory (the ring, free now), padded so that both the blocked and the
+// coalesced accesses are free of bank conflicts.
+
+constexpr int WARP_SORT_MAX = 1024;  // live keys one warp sorts: 32 a lane
+constexpr int WARP_AREA = WARP_SORT_MAX + WARP_SORT_MAX / 32;  // its padded keys
+// shared bytes the sort uses, at the ring's start: eight warps' areas, or
+// the CTA's area of 8192 keys (as many)
+constexpr int SORT_BYTES = 8 * CONSUMER_WARPS * WARP_AREA;
+
+// shared bytes of the part's end for k: none where one warp's registers
+// hold the k best (k <= 32)
+int sort_bytes(int k) { return k > 32 ? SORT_BYTES : 0; }
+
+// position of key i in a sort area of E keys a thread (E >= 16: one pad a
+// thread's E keys; else one a 16)
+template <int E> __device__ __forceinline__ int spot(int i) { return i + (i >> (E >= 32 ? 5 : 4)); }
+
+// the keys at positions i < j: descending puts the larger at i
+__device__ __forceinline__ void cex(unsigned long long& a, unsigned long long& b, bool desc) {
+  const unsigned long long x = a, y = b;
+  const bool swap = (x < y) == desc;
+  a = swap ? y : x;
+  b = swap ? x : y;
+}
+
+// the strides below min(E, size) of a bitonic merge of blocks of `size`
+// (a block is descending where (position & size) == 0): in registers
+template <int E>
+__device__ __forceinline__ void thread_steps(unsigned long long (&x)[E], int base, int size) {
+#pragma unroll
+  for (int st = E / 2; st > 0; st >>= 1)
+    if (st < size) {
+#pragma unroll
+      for (int r = 0; r < E; ++r)
+        if (!(r & st)) cex(x[r], x[r | st], ((base | r) & size) == 0);
+    }
+}
+
+// one stride E <= st < 32 E: lanes st / E apart exchange keys
+template <int E>
+__device__ __forceinline__ void lane_step(unsigned long long (&x)[E], int base, int size, int st,
+                                          int lane) {
+  const int m = st / E;
+  // a thread's keys share their block's direction: size > st >= E
+  const bool take_max = ((lane & m) == 0) == ((base & size) == 0);
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const unsigned long long y = __shfl_xor_sync(FULL, x[r], m);
+    x[r] = ((x[r] < y) == take_max) ? y : x[r];
+  }
+}
+
+// the strides below 32 E of a merge of blocks of `size`
+template <int E>
+__device__ __forceinline__ void warp_merge(unsigned long long (&x)[E], int base, int size, int lane) {
+  for (int st = min(size / 2, 16 * E); st >= E; st >>= 1) lane_step<E>(x, base, size, st, lane);
+  thread_steps<E>(x, base, size);
+}
+
+// each warp's 32 E keys sorted, alternately descending and ascending by
+// position (the whole run descending when it is one warp's)
+template <int E>
+__device__ __forceinline__ void warp_sort(unsigned long long (&x)[E], int base, int lane) {
+  for (int size = 2; size <= 32 * E; size <<= 1) warp_merge<E>(x, base, size, lane);
+}
+
+// answer position j from key x (0: a missing entry, -inf at slot 0)
+__device__ __forceinline__ void put(float* v, int* s, int j, unsigned long long x) {
+  const bool real = (x >> 32) != 0;
+  v[j] = real ? fvalue((uint32_t)(x >> 32)) : -CUDART_INF_F;
+  s[j] = real ? (int)(0xffffffffu - (uint32_t)x) : 0;
+}
+
+// src[0..n), n <= 32 E, sorted by one warp in `area` (its own, 32 E
+// padded keys) and written to v, s [k]
+template <int E>
+__device__ __forceinline__ void warp_sort_write(const unsigned long long* src, int n, int k,
+                                                unsigned long long* area, float* v, int* s,
+                                                int lane) {
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    const int i = 32 * j + lane;
+    area[spot<E>(i)] = i < n ? src[i] : 0ull;
+  }
+  __syncwarp();
+  const int base = lane * E;
+  unsigned long long x[E];
+#pragma unroll
+  for (int r = 0; r < E; ++r) x[r] = area[spot<E>(base + r)];
+  warp_sort<E>(x, base, lane);
+  // a lane writes back the positions it read: no other lane's
+#pragma unroll
+  for (int r = 0; r < E; ++r) area[spot<E>(base + r)] = x[r];
+  __syncwarp();
+  for (int j = lane; j < k; j += 32) put(v, s, j, j < n ? area[spot<E>(j)] : 0ull);
+  __syncwarp();
+}
+
+// src[0..n), 32 E < n <= 256 E, sorted by the 256 consumer threads in
+// `area` (256 E padded keys) and written to v, s [k]
+template <int E>
+__device__ __forceinline__ void cta_sort_write(const unsigned long long* src, int n, int k,
+                                               unsigned long long* area, float* v, int* s,
+                                               int tid, int lane) {
+  constexpr int S = 32 * E, P = 256 * E;  // a warp's slice, the network
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    const int i = CONSUMERS * j + tid;
+    area[spot<E>(i)] = i < n ? src[i] : 0ull;
+  }
+  named_bar_sync();
+  const int base = tid * E;
+  unsigned long long x[E];
+#pragma unroll
+  for (int r = 0; r < E; ++r) x[r] = area[spot<E>(base + r)];
+  warp_sort<E>(x, base, lane);
+  for (int size = 2 * S; size <= P; size <<= 1) {
+    // a thread stores and loads the positions it loaded and stored last:
+    // one barrier a change of layout
+#pragma unroll
+    for (int r = 0; r < E; ++r) area[spot<E>(base + r)] = x[r];
+    named_bar_sync();
+#pragma unroll
+    for (int m = 0; m < E / 8; ++m)
+#pragma unroll
+      for (int w = 0; w < 8; ++w) x[8 * m + w] = area[spot<E>(w * S + CONSUMERS * m + tid)];
+    // strides S << b: register w against w | 1 << b; a slice's positions
+    // share their block's direction (size >= 2 S)
+#pragma unroll
+    for (int b = 2; b >= 0; --b)
+      if ((S << b) < size) {
+#pragma unroll
+        for (int m = 0; m < E / 8; ++m)
+#pragma unroll
+          for (int w = 0; w < 8; ++w)
+            if (!(w & (1 << b)))
+              cex(x[8 * m + w], x[8 * m + (w | (1 << b))], ((w * S) & size) == 0);
+      }
+#pragma unroll
+    for (int m = 0; m < E / 8; ++m)
+#pragma unroll
+      for (int w = 0; w < 8; ++w) area[spot<E>(w * S + CONSUMERS * m + tid)] = x[8 * m + w];
+    named_bar_sync();
+#pragma unroll
+    for (int r = 0; r < E; ++r) x[r] = area[spot<E>(base + r)];
+    warp_merge<E>(x, base, size, lane);
+  }
+#pragma unroll
+  for (int r = 0; r < E; ++r) area[spot<E>(base + r)] = x[r];
+  named_bar_sync();
+  for (int j = tid; j < k; j += CONSUMERS) put(v, s, j, j < n ? area[spot<E>(j)] : 0ull);
+}
+
+// The part's end for k > 32, by the 256 consumer threads: query ql's
+// cnt[ql] live keys (keys + ql * stride) sorted and written to out_v,
+// out_i + ql * k. With `gather` (CTAs shared the split) the keys are the
+// last part's cut of the parts' lists: k of them, its missing entries
+// small keys among the real ones, which are counted and moved to the
+// front first (into cnt). Kept out of line, as warp_select is, so that the
+// kernel's per-tile loop is compiled as it was without it; it reaches the
+// ring through the dynamic shared array, so that its accesses are shared
+// ones.
+__device__ __noinline__ void sort_live(unsigned long long* keys, size_t stride, int* cnt,
+                                       int q_live, int k, bool gather, float* out_v,
+                                       int* out_i) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned long long* ring = reinterpret_cast<unsigned long long*>(
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (gather) {
+    for (int ql = warp; ql < q_live; ql += CONSUMER_WARPS) {
+      const int live = warp_compact(keys + ql * stride, k, lane);
+      if (lane == 0) cnt[ql] = live;
+    }
+    named_bar_sync();
+  }
+  unsigned long long* mine = ring + warp * WARP_AREA;
+  for (int ql = warp; ql < q_live; ql += CONSUMER_WARPS) {
+    const int n = cnt[ql];
+    if (n > WARP_SORT_MAX) continue;
+    const unsigned long long* src = keys + ql * stride;
+    float* v = out_v + (size_t)ql * k;
+    int* s = out_i + (size_t)ql * k;
+    if (n <= 32) warp_sort_write<1>(src, n, k, mine, v, s, lane);
+    else if (n <= 64) warp_sort_write<2>(src, n, k, mine, v, s, lane);
+    else if (n <= 128) warp_sort_write<4>(src, n, k, mine, v, s, lane);
+    else if (n <= 256) warp_sort_write<8>(src, n, k, mine, v, s, lane);
+    else if (n <= 512) warp_sort_write<16>(src, n, k, mine, v, s, lane);
+    else warp_sort_write<32>(src, n, k, mine, v, s, lane);
+  }
+  for (int ql = 0; ql < q_live; ++ql) {
+    const int n = cnt[ql];
+    if (n <= WARP_SORT_MAX) continue;
+    named_bar_sync();  // the area is free: the warps' sorts, the last query's writes are done
+    const unsigned long long* src = keys + ql * stride;
+    float* v = out_v + (size_t)ql * k;
+    int* s = out_i + (size_t)ql * k;
+    if (n <= 2048) cta_sort_write<8>(src, n, k, ring, v, s, tid, lane);
+    else if (n <= 4096) cta_sort_write<16>(src, n, k, ring, v, s, tid, lane);
+    else cta_sort_write<32>(src, n, k, ring, v, s, tid, lane);
+  }
+}
+
+template <int NQ, int PASSES, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 1)
 partial_kernel(const __grid_constant__ CUtensorMap db_map, const __grid_constant__ CUtensorMap q_map,
                const float* __restrict__ q, const unsigned char* __restrict__ valid,
@@ -847,27 +1105,40 @@ partial_kernel(const __grid_constant__ CUtensorMap db_map, const __grid_constant
     }
     return;
   }
-  // a bitonic network in shared memory: the ring is free now, p2 keys a warp
-  const int sorters = min(CONSUMER_WARPS, (int)((size_t)stages * STAGE / (8 * (size_t)p2)));
-  if (warp >= sorters) return;
-  unsigned long long* area = reinterpret_cast<unsigned long long*>(ring) + (size_t)warp * p2;
-  for (int ql = warp; ql < q_live; ql += sorters) {
-    const int n = parts > 1 ? k : cnt[ql];
-    for (int i = lane; i < p2; i += 32) area[i] = i < n ? keys[ql * stride + i] : 0ull;
-    __syncwarp();
-    for (int size = 2; size <= p2; size <<= 1)
-      for (int st = size >> 1; st > 0; st >>= 1) {
-        for (int i = lane; i < p2 / 2; i += 32) {
-          const int lo = 2 * i - (i & (st - 1));
-          const int hi = lo + st;
-          const bool desc = (lo & size) == 0;
-          const unsigned long long x = area[lo], y = area[hi];
-          if ((x < y) == desc) { area[lo] = y; area[hi] = x; }
+  if constexpr (WIDE) {
+    // every consumer warp sorts the live keys, in the ring (free now)
+    const size_t out = ((size_t)split * Q + q_base) * k;
+    sort_live(keys, stride, cnt, q_live, k, parts > 1, part_v + out, part_i + out);
+  } else {
+    // Never reached: this instance runs k <= 32 alone, which returned
+    // above. It is the one-warp sort that larger k took before sort_live,
+    // kept so that ptxas compiles the k <= 32 instances as it did then:
+    // the same registers and spills, and the same per-tile loop. Without
+    // it the k = 10 partial ran 2.0-3.3 % slower at Q = 32 ("highest")
+    // and 2.8-9.0 % at Q = 256 ("default"), in each of three A/B calls
+    // on an H100 80GB HBM3 at 700 W (PERF.md, section 6):
+    // a bitonic network in shared memory, p2 keys a warp
+    const int sorters = min(CONSUMER_WARPS, (int)((size_t)stages * STAGE / (8 * (size_t)p2)));
+    if (warp >= sorters) return;
+    unsigned long long* area = reinterpret_cast<unsigned long long*>(ring) + (size_t)warp * p2;
+    for (int ql = warp; ql < q_live; ql += sorters) {
+      const int n = parts > 1 ? k : cnt[ql];
+      for (int i = lane; i < p2; i += 32) area[i] = i < n ? keys[ql * stride + i] : 0ull;
+      __syncwarp();
+      for (int size = 2; size <= p2; size <<= 1)
+        for (int st = size >> 1; st > 0; st >>= 1) {
+          for (int i = lane; i < p2 / 2; i += 32) {
+            const int lo = 2 * i - (i & (st - 1));
+            const int hi = lo + st;
+            const bool desc = (lo & size) == 0;
+            const unsigned long long x = area[lo], y = area[hi];
+            if ((x < y) == desc) { area[lo] = y; area[hi] = x; }
+          }
+          __syncwarp();
         }
-        __syncwarp();
-      }
-    for (int j = lane; j < k; j += 32) write(ql, j, area[j]);
-    __syncwarp();
+      for (int j = lane; j < k; j += 32) write(ql, j, area[j]);
+      __syncwarp();
+    }
   }
 }
 
@@ -1144,8 +1415,9 @@ cut_kernel(const float* __restrict__ part_v, int Q, int S, int kp, int k, int* _
     mn = min(mn, fkey(x[a]));
     mx = max(mx, fkey(x[b]));
   }
-  const uint32_t L = block_reduce(mn, [](uint32_t u, uint32_t v) { return min(u, v); }, ws);
-  const uint32_t U = block_reduce(mx, [](uint32_t u, uint32_t v) { return max(u, v); }, ws);
+  uint32_t L = block_reduce(mn, [](uint32_t u, uint32_t v) { return min(u, v); }, ws);
+  uint32_t U = block_reduce(mx, [](uint32_t u, uint32_t v) { return max(u, v); }, ws);
+  auto sum = [](uint32_t u, uint32_t v) { return u + v; };
 
   // each run's window [hi, lo): its keys in [L, U] before position r; the
   // keys above U are all kept
@@ -1157,8 +1429,39 @@ cut_kernel(const float* __restrict__ part_v, int Q, int S, int kp, int k, int* _
     off[s] = e.y - e.x;
     above += e.x;
   }
-  above = (int)block_reduce((uint32_t)above, [](uint32_t u, uint32_t v) { return u + v; }, ws);
-  const int W = block_scan(off, S, ws);
+  above = (int)block_reduce((uint32_t)above, sum, ws);
+  int W = block_scan(off, S, ws);
+  if (W > WINDOW_KEYS) {
+    // A run far shorter than the rest (a split's tail, a shard's list of
+    // few live rows) holds L far below the r-th key, and the windows
+    // outgrow shared memory: every pass of the select then reads them
+    // from L2 again. Bisect [L, U] by key until they fit, counting each
+    // run's keys at or above the midpoint m before position r: the r-th
+    // key is at least m if they are r or more, else below m.
+    int at_least_L = above + W;
+    while (at_least_L - above > WINDOW_KEYS && L < U) {
+      const uint32_t m = (uint32_t)(((unsigned long long)L + U + 1) >> 1);  // L < m <= U
+      int ge = 0;
+      for (int s = tid; s < S; s += MERGE_THREADS) ge += prefix_ends(run(s), 0, 0, 0u, 0, end, m).y;
+      ge = (int)block_reduce((uint32_t)ge, sum, ws);
+      if (ge >= r) {
+        L = m;
+        at_least_L = ge;
+      } else {
+        U = m - 1;
+        above = ge;  // the keys above U are those at or above m
+      }
+    }
+    // the windows again, each searched over the run's whole prefix
+    for (int s = tid; s < S; s += MERGE_THREADS) {
+      const int2 e = prefix_ends(run(s), 0, end, U, 0, end, L);
+      hi[s] = e.x;
+      lo[s] = e.y;
+      off[s] = e.y - e.x;
+    }
+    __syncthreads();
+    W = block_scan(off, S, ws);
+  }
   const bool held = W <= WINDOW_KEYS;
   auto load = [&](int f) {
     const int s = run_of(off, S, f);
@@ -1324,14 +1627,14 @@ int encode_maps(CUtensorMap* db_map, CUtensorMap* q_map, const float* db, const 
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int NQ, int PASSES>
+template <int NQ, int PASSES, bool WIDE>
 int launch_partial(const float* q, float* qs, const float* db, const unsigned char* valid,
                    const float* sq, int Q, int N, int D, int k, int l2sq, int rows_per_split,
                    int splits, int parts, int stages, unsigned long long* buf,
                    unsigned long long* mbuf, int* arrived, float* part_v, int* part_i,
                    cudaStream_t stream) {
   const size_t smem = partial_smem_bytes(NQ, stages, k, buf == nullptr, PASSES);
-  cudaError_t err = cudaFuncSetAttribute(partial_kernel<NQ, PASSES>,
+  cudaError_t err = cudaFuncSetAttribute(partial_kernel<NQ, PASSES, WIDE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   split_kernel<PASSES><<<(Q * D + 255) / 256, 256, 0, stream>>>(q, qs, Q * D);
@@ -1340,7 +1643,7 @@ int launch_partial(const float* q, float* qs, const float* db, const unsigned ch
   const int e = encode_maps(&db_map, &q_map, db, qs, N, Q, D, NQ, query_parts(PASSES));
   if (e) return e;
   dim3 grid((Q + NQ - 1) / NQ, splits * parts);
-  partial_kernel<NQ, PASSES><<<grid, THREADS, smem, stream>>>(
+  partial_kernel<NQ, PASSES, WIDE><<<grid, THREADS, smem, stream>>>(
       db_map, q_map, q, valid, sq, Q, N, D, k, l2sq, rows_per_split, parts, stages, capacity(k),
       buf, mbuf, arrived, part_v, part_i);
   return (int)cudaGetLastError();
@@ -1356,13 +1659,14 @@ int fused_knn_merge_max() { return MERGE_MAX; }
 int fused_knn_merge_segment() { return SEG; }
 int fused_knn_runs_max() { return RUNS_MAX; }
 int fused_knn_capacity(int k) { return capacity(k); }
+int fused_knn_sort_bytes(int k) { return sort_bytes(k); }
 long long fused_knn_partial_smem(int nq, int stages, int k, int smem_buffers, int passes) {
   return (long long)partial_smem_bytes(nq, stages, k, smem_buffers != 0, passes);
 }
 
-// All pointers are device pointers; `stream` is a cudaStream_t. `nq` and
-// `passes` pick the instance (8, 16, 32 or 64 queries a CTA; 3 TF32 passes
-// for precision "highest", 1 for "default"), `parts` the CTAs that share a
+// All pointers are device pointers; `stream` is a cudaStream_t. `nq`,
+// `passes` and k pick the instance (8, 16, 32 or 64 queries a CTA; 3 TF32
+// passes for precision "highest", 1 for "default"; k <= 32 or above), `parts` the CTAs that share a
 // split's rows (at most 8), `stages` the ring depth (4..8); `qs` is
 // [2, Q, D] f32 scratch for the split queries (hi and lo; [1, Q, D], hi
 // alone, with one pass); `buf` is
@@ -1380,12 +1684,16 @@ int fused_knn_partial(const float* q, float* qs, const float* db, const unsigned
       parts > MAX_PARTS || (parts > 1 && (!mbuf || !arrived)) ||
       stages < MIN_STAGES || stages > MAX_STAGES ||
       partial_smem_bytes(nq, stages, k, buf == nullptr, passes) > (size_t)SMEM_MAX ||
-      (size_t)stages * stage_bytes(nq, passes) < 8 * (size_t)pow2_at_least(k))
+      (size_t)stages * stage_bytes(nq, passes) < (size_t)sort_bytes(k))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define PARTIAL(NQ_, P_)                                                                       \
-  launch_partial<NQ_, P_>(q, qs, db, valid, sq, Q, N, D, k, l2sq, rows_per_split, splits, parts, \
-                          stages, buf, mbuf, arrived, part_v, part_i, s)
+  (k > 32 ? launch_partial<NQ_, P_, true>(q, qs, db, valid, sq, Q, N, D, k, l2sq, rows_per_split, \
+                                          splits, parts, stages, buf, mbuf, arrived, part_v,      \
+                                          part_i, s)                                              \
+          : launch_partial<NQ_, P_, false>(q, qs, db, valid, sq, Q, N, D, k, l2sq, rows_per_split, \
+                                           splits, parts, stages, buf, mbuf, arrived, part_v,     \
+                                           part_i, s))
   switch (nq * 4 + passes) {
     case 8 * 4 + 3: return PARTIAL(8, 3);
     case 16 * 4 + 3: return PARTIAL(16, 3);

@@ -23,6 +23,17 @@ the partial pass's output and scratch (``_SEARCH_BYTES``), and, where a
 small index leaves too few splits (each is at least 256 rows), the CTAs
 that share one split's rows (``plan_parts``).
 
+At its end a CTA sorts each query's live candidates, n of them (at most
+k, and at most the rows its split saw), by a bitonic network of pow2(n)
+keys, not pow2(k), and writes positions n .. k-1 as missing entries (-inf
+at slot 0). The kernel has an instance for k <= 32, where one warp's
+registers hold the list, and one for k > 32, where every
+consumer warp sorts: a query of up to 1,024 live keys is one warp's,
+in its registers, the warps side by side; a larger one is the whole
+CTA's, one query after another, each warp sorting a slice in registers
+before the merges across slices. The sort borrows the ring's shared
+memory, which every plan's ring holds (``sort_bytes``).
+
 The merge takes the k best of the splits' sorted lists (runs) in split
 order, in one of two designs by size (``merge_design``): up to
 ``_MERGE_CROSSOVER`` candidates a query, one CTA a query that holds them
@@ -93,6 +104,9 @@ _MIN_STAGES, _MAX_STAGES = 4, 8
 _MAX_PARTS = 8  # CTAs that share a split (csrc MAX_PARTS)
 _CONSUMER_WARPS = 8
 _SELECT_ROOM = 4096  # shared bytes a consumer warp's selects use (csrc SELECT_ROOM)
+# shared bytes the end's sort takes from the ring for k > 32: eight warps'
+# areas of 1,024 keys and a pad a 32 (csrc SORT_BYTES)
+_SORT_BYTES = 8 * _CONSUMER_WARPS * (1024 + 1024 // 32)
 # TF32 passes of the partial kernel's instance for each precision (csrc
 # PASSES), and the name its launches are counted under
 PASSES = {"highest": 3, "default": 1}
@@ -175,6 +189,7 @@ def _lib() -> ctypes.CDLL:
         lib.fused_knn_partial_smem.argtypes = [_I, _I, _I, _I, _I]
         lib.fused_knn_partial_smem.restype = ctypes.c_longlong
         lib.fused_knn_capacity.argtypes = [_I]  # the int getters return c_int
+        lib.fused_knn_sort_bytes.argtypes = [_I]
         consts = [
             (lib.fused_knn_k_max, (), K_MAX),
             (lib.fused_knn_row_granule, (), _TN),
@@ -183,6 +198,8 @@ def _lib() -> ctypes.CDLL:
             (lib.fused_knn_runs_max, (), _RUNS_MAX),
         ] + [
             (lib.fused_knn_capacity, (k,), capacity(k)) for k in (1, 10, 200, 8192)
+        ] + [
+            (lib.fused_knn_sort_bytes, (k,), sort_bytes(k)) for k in (1, 32, 33, 8192)
         ] + [
             (lib.fused_knn_partial_smem, (n, st, k, sb, p),
              partial_smem(n, st, k, bool(sb), p))
@@ -225,6 +242,14 @@ def _query_parts(passes: int) -> int:
     return 2 if passes == 3 else 1
 
 
+def sort_bytes(k: int) -> int:
+    """Shared bytes the partial kernel's end sorts in, at the start of its
+    ring (free by then): none for k <= 32, whose list one warp's registers
+    hold, else eight warps' padded areas of 1,024 keys, as many as the
+    CTA-wide area of 8,192 keys (csrc sort_bytes)."""
+    return _SORT_BYTES if k > 32 else 0
+
+
 def partial_smem(n: int, stages: int, k: int, smem_buffers: bool,
                  passes: int = 3) -> int:
     """Shared-memory bytes of one partial-kernel block: 1 KB to align the
@@ -256,7 +281,10 @@ def plan_tile(q: int, k: int, precision: str = "highest") -> Tile:
     """The smallest instance that covers the batch (at most 64 queries a
     CTA); the buffers in shared memory where they fit beside a ring of 4
     stages; then the deepest ring (at most 8 stages) that fits. A one-pass
-    stage carries no lo part, so more of it fits."""
+    stage carries no lo part, so more of it fits. The ring must hold the
+    end's sort (``sort_bytes``; the smallest ring, 4 one-pass stages of 8
+    queries, holds 69,632 bytes against its 67,584): a plan that could not
+    raises."""
     if not 1 <= k <= K_MAX:
         raise ValueError(f"the fused KNN kernel takes 1 <= k <= {K_MAX}, got {k}")
     passes = PASSES[precision]
@@ -266,6 +294,10 @@ def plan_tile(q: int, k: int, precision: str = "highest") -> Tile:
         st for st in range(_MIN_STAGES, _MAX_STAGES + 1)
         if partial_smem(n, st, k, smem_buffers, passes) <= _SMEM_MAX
     )
+    ring = stages * (_TM + _query_parts(passes) * n) * _ROW_BYTES
+    if ring < sort_bytes(k):  # the end's sort lies in the ring
+        raise ValueError(f"a ring of {ring} bytes cannot hold the sort's "
+                         f"{sort_bytes(k)} at q={q}, k={k}")
     return Tile(n, stages, smem_buffers, passes)
 
 
@@ -369,8 +401,11 @@ def knn_partial(queries, database, valid, k, rows, *, sq_norms=None,
     """Partial pass: ``[splits, Q, k]`` top-k values and slots of each
     ``rows``-row split of the database (``rows`` a multiple of 256), the
     tile from ``plan_tile``, the instance by ``precision`` (3xTF32 for
-    "highest", one TF32 pass for "default"). A CUDA tensor launches the
-    kernel; a CPU tensor runs the plain version."""
+    "highest", one TF32 pass for "default"). Each list is non-increasing;
+    past a split's n live candidates (n < k where it has fewer valid rows)
+    its entries are missing: -inf with a slot in range (slot 0 from the
+    kernel, which sorts only the n). A CUDA tensor launches the kernel; a
+    CPU tensor runs the plain version."""
     if queries.device.type == "cpu":
         return knn_partial_plain(
             queries, database, valid, k, rows, sq_norms=sq_norms, metric=metric,

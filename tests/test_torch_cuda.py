@@ -269,6 +269,27 @@ def test_merge_past_the_old_cap_is_bit_equal_to_plain(gen, splits, k, Q):
     assert torch.equal(mv[rows].cpu().view(torch.int32), cv.view(torch.int32))
 
 
+@pytest.mark.parametrize("Q", [1, 32])
+@pytest.mark.parametrize("short", [255, 64, 0])
+def test_run_merge_with_a_short_run_is_bit_equal_to_plain(gen, short, Q):
+    """128 runs of 2,048 live values and a 129th of ``short`` (a split's
+    tail: a shard of 262,399 rows at k = 8192 plans 128 splits of 2,048
+    and one of 255), the rest -inf: a short run holds the co-rank
+    bracket's lower end far below the r-th value, so the windows outgrow
+    shared memory until a bisection narrows them. Bit-equal to the plain
+    merge."""
+    S, k = 129, 8192
+    v = torch.randn((S, Q, k), generator=gen, device="cuda")
+    v[:, :, 2048:] = float("-inf")
+    v[-1, :, short:] = float("-inf")
+    v = torch.sort(v, dim=-1, descending=True).values.contiguous()
+    i = torch.randint(0, 1 << 20, (S, Q, k), generator=gen, device="cuda", dtype=torch.int32)
+    mv, mi = fused_knn.topk_merge(v, i, k, design="runs")
+    xv, xi = fused_knn.topk_merge_plain(v, i, k)
+    torch.cuda.synchronize()
+    assert torch.equal(mv, xv) and torch.equal(mi, xi)
+
+
 @pytest.mark.parametrize("precision", ["highest", "default"])
 def test_pair_at_k_8192_past_the_old_cap(gen, precision):
     """The pair at Q = 1, k = 8192 on a 2^18-row index: about one split
@@ -332,8 +353,9 @@ def test_partial_kernel_query_tile_edges(gen, Q):
 
 @pytest.mark.parametrize("k", [1, 10, 32, 33, 1024, 8192])
 def test_partial_kernel_k_edges(gen, k):
-    """One selection for every k: the register sort up to 32, the shared
-    sort above, and K_MAX with its buffers in a scratch tensor."""
+    """One selection for every k: the register sort up to 32, the warps'
+    and the CTA's sorts above, and K_MAX with its buffers in a scratch
+    tensor."""
     _edge_case(gen, 3, 40000, 64, k)
 
 
@@ -406,6 +428,122 @@ def test_one_pass_at_d384_within_3e_5_of_its_plain_version(gen, Q):
     assert (hv - dv).abs().max().item() <= 1e-3
 
 
+# -- the part's end: each query's live keys sorted, by one warp or the CTA -----
+
+
+def _live_case(q, db, valid, k, rows, precision="highest"):
+    """The partial at ``rows`` a split against its plain version, split by
+    split (the rules above): each list non-increasing, its missing entries
+    -inf at slot 0 past the live ones, every slot in range."""
+    bound = _bound if precision == "highest" else _bound1
+    pv, pi = fused_knn.knn_partial(q, db, valid, k, rows, precision=precision)
+    wv, wi = fused_knn.knn_partial_plain(q, db, valid, k + 1, rows, precision=precision)
+    torch.cuda.synchronize()
+    assert pv.shape == (-(-db.shape[0] // rows), q.shape[0], k)
+    assert bool((pv[..., 1:] <= pv[..., :-1]).all())
+    missing = ~torch.isfinite(pv)
+    assert bool((pv[missing] == float("-inf")).all()) and bool((pi[missing] == 0).all())
+    assert bool(((pi >= 0) & (pi < db.shape[0])).all())
+    for s in range(pv.shape[0]):
+        _check(pv[s], pi[s], wv[s], wi[s], k, bound(q, db, wi[s], k, "dot"))
+    return pv, pi
+
+
+@pytest.mark.parametrize("Q", [1, 8, 9, 32, 64])
+@pytest.mark.parametrize("k", [33, 64, 257, 1024, 2047, 2048, 2049, 4096, 8192])
+def test_sort_of_live_keys_by_k_and_query_tile(gen, k, Q):
+    """Every size of the end's sort: one warp a query up to 1,024 live
+    keys (k = 33 .. 1024: 2 to 32 keys a lane), the CTA above (2047 and
+    2048 at 8 keys a thread, 2049 and 4096 at 16, 8192 at 32); a tile's
+    queries one a warp (Q = 1, 8) or more (9 .. 64); two splits of twice
+    k's rows (n = k, after selects) and a ragged third of a quarter
+    (n below k where that is fewer than k rows)."""
+    rows = 2 * -(-k // 256) * 256
+    n = 2 * rows + rows // 4
+    q = torch.randn(Q, 32, generator=gen, device="cuda")
+    db = torch.randn(n, 32, generator=gen, device="cuda")
+    valid = torch.rand(n, generator=gen, device="cuda") > 0.2
+    pv, _ = _live_case(q, db, valid, k, rows)
+    live = torch.isfinite(pv).sum(-1)
+    assert bool((live[:2] == k).all()) and bool((live[2] == torch.clamp(
+        valid[2 * rows:].sum(), max=k)).all())
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("case", ["index_below_k", "split_2048_at_8192", "invalid_split"])
+def test_sort_of_live_keys_below_k(gen, case, precision):
+    """Splits with fewer live candidates than k: an index of 700 rows at k
+    = 2049; splits of 2,048 rows at k = 8192 (the sharded plan's: a
+    network of 2,048 keys, not 8,192); a split whose every row is invalid
+    (no live key: k missing entries)."""
+    Q, d = {"index_below_k": (9, 48), "split_2048_at_8192": (8, 32),
+            "invalid_split": (9, 32)}[case]
+    k, rows, n = {"index_below_k": (2049, 768, 700),
+                  "split_2048_at_8192": (8192, 2048, 3 * 2048 + 500),
+                  "invalid_split": (4096, 2048, 3 * 2048)}[case]
+    q = torch.randn(Q, d, generator=gen, device="cuda")
+    db = torch.randn(n, d, generator=gen, device="cuda")
+    valid = torch.rand(n, generator=gen, device="cuda") > 0.1
+    if case == "invalid_split":
+        valid[rows:2 * rows] = False
+    pv, pi = _live_case(q, db, valid, k, rows, precision)
+    live = torch.isfinite(pv).sum(-1)
+    for s in range(pv.shape[0]):
+        assert bool((live[s] == min(k, int(valid[s * rows:(s + 1) * rows].sum()))).all())
+    if case == "invalid_split":
+        assert not torch.isfinite(pv[1]).any() and not pi[1].any()
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("Q,k", [(1, 1024), (9, 2049), (1, 8192), (32, 4096)])
+def test_sort_ties_across_slices_and_halves_and_signed_zeros(gen, Q, k, precision):
+    """Integer vectors (entries in [-2, 2], d = 16) score exactly at both
+    precisions, so ties are exact and many: every value's run of equal
+    scores crosses warps' slices and the CTA's halves of the network.
+    Query 0's entries are all negative and every 7th row is zero, so its
+    list holds scores of zero from -0.0 (zero rows) and +0.0 (orthogonal
+    rows) alike, equal as numbers. Values equal and slots equal at every
+    position: ties to the lower slot."""
+    rows = -(-3 * k // 2 // 256) * 256  # about 0.6 of a split's valid rows kept
+    n = 2 * rows
+    q = torch.randint(-2, 3, (Q, 16), generator=gen, device="cuda").float()
+    q[0] = -torch.randint(1, 3, (16,), generator=gen, device="cuda").float()
+    db = torch.randint(-2, 3, (n, 16), generator=gen, device="cuda").float()
+    db[::7] = 0.0
+    valid = torch.rand(n, generator=gen, device="cuda") > 0.05
+    pv, pi = fused_knn.knn_partial(q, db, valid, k, rows, precision=precision)
+    wv, wi = fused_knn.knn_partial_plain(q, db, valid, k, rows, precision=precision)
+    torch.cuda.synchronize()
+    assert bool((pv[:, 0] == 0).any()), "no zero score in query 0's lists"
+    assert torch.equal(pv, wv) and torch.equal(pi, wi)
+    v, i = fused_knn.fused_topk_scores(q, db, valid, k, precision=precision)
+    sv, si = topk.chunked_topk_scores(q, db, valid, k, precision=precision)
+    torch.cuda.synchronize()
+    assert torch.equal(v, sv) and torch.equal(i, si)
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("cap,Q,k", [(8192, 1, 1024), (8192, 9, 300), (4096, 1, 8192)])
+def test_sort_after_parts_of_a_small_index(gen, cap, Q, k, precision):
+    """A small index plans CTAs that share a split (parts > 1): the last
+    of them gathers the parts' live keys (fewer than k: each part saw 128
+    rows), sorts only those, and the pair answers as the plain scan."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, splits = fused_knn.plan_splits(Q, cap, k, n_sm)
+    assert fused_knn.plan_parts(Q, splits, rows, k, n_sm) > 1
+    q = torch.randn(Q, 64, generator=gen, device="cuda")
+    db = torch.randn(cap, 64, generator=gen, device="cuda")
+    valid = torch.rand(cap, generator=gen, device="cuda") > 0.2
+    _live_case(q, db, valid, k, rows, precision)
+    bound = _bound if precision == "highest" else _bound1
+    v, i = fused_knn.fused_topk_scores(q, db, valid, k, precision=precision)
+    pv, pi = topk.chunked_topk_scores(q, db, valid, min(k + 1, cap), precision=precision)
+    pad = k + 1 - pv.shape[1]
+    pv = torch.nn.functional.pad(pv, (0, pad), value=float("-inf"))
+    pi = torch.nn.functional.pad(pi, (0, pad), value=0)
+    _check(v, i, pv, pi, k, bound(q, db, pi, k, "dot"))
+
+
 def test_device_plane_closes_a_knn_search_record_on_cuda_events(gen):
     """An armed plane times ``knn.search`` between two CUDA events and
     delivers the record without a synchronize of its own."""
@@ -474,7 +612,7 @@ def _unit(gen, n, d):
 
 
 @pytest.mark.parametrize("merge", ["tree", "gather"])
-@pytest.mark.parametrize("Q,k", [(1, 10), (32, 10), (64, 1024)])
+@pytest.mark.parametrize("Q,k", [(1, 10), (32, 10), (64, 1024), (1, 8192)])
 def test_sharded_matches_single_on_the_card(gen, monkeypatch, merge, Q, k):
     """Four shards on one card against one KnnShard: ids and scores
     bit-identical (the partial kernel scores a row the same wherever it

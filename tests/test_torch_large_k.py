@@ -240,3 +240,71 @@ def test_every_merge_callers_runs_are_non_increasing(seed, local, q, k, rows, n_
             jnp.asarray(vals[1].numpy()), jnp.asarray(idx[1].numpy()), k)
         np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
         np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("k", [1, 32, 33, 1024, 1025, 2049, 8192])
+@pytest.mark.parametrize("q", [1, 8, 9, 32, 64, 256])
+def test_every_plans_ring_holds_the_end_sort(q, k, precision):
+    """The end's sort borrows the ring: every tile the planner picks holds
+    its bytes (none for k <= 32, eight warps' padded areas of 1,024 keys
+    above), within the block's shared memory."""
+    tile = fused_knn.plan_tile(q, k, precision)
+    ring = tile.stages * (128 + fused_knn._query_parts(tile.passes) * tile.n) * 128
+    assert fused_knn.sort_bytes(k) == (0 if k <= 32 else 8 * 8 * (1024 + 32))
+    assert ring >= fused_knn.sort_bytes(k)
+    assert fused_knn.partial_smem(tile.n, tile.stages, k, tile.smem_buffers,
+                                  tile.passes) <= fused_knn._SMEM_MAX
+
+
+def test_a_plan_whose_ring_cannot_hold_the_sort_raises(monkeypatch):
+    monkeypatch.setattr(fused_knn, "_SORT_BYTES", 1 << 20)
+    fused_knn.plan_tile.cache_clear()
+    try:
+        with pytest.raises(ValueError, match="cannot hold the sort"):
+            fused_knn.plan_tile(1, 33)
+        assert fused_knn.plan_tile(1, 32).n == 8  # k <= 32 sorts in registers
+    finally:
+        fused_knn.plan_tile.cache_clear()
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("k,rows", [(1024, 256), (2049, 768), (8192, 2048)])
+def test_splits_with_fewer_live_rows_than_k_match_jax_chunked(k, rows, integer):
+    """Splits of fewer rows than k, a ragged last one, and one whose rows
+    are all invalid: each split's list holds its live candidates (the rows
+    it has, at most k), non-increasing, then missing entries (-inf, a slot
+    in range): the network the kernel sorts has pow2(live) keys, not
+    pow2(k). The
+    merge of the splits equals the JAX package's scan of the whole index:
+    values everywhere, ids wherever the JAX value is finite (and clear of
+    its neighbours by 1e-4 for normal vectors)."""
+    rng = np.random.default_rng(k + rows)
+    cap, q = 4 * rows + rows // 2, 3
+    if integer:
+        db = rng.integers(-4, 5, size=(cap, DIM)).astype(np.float32)
+        queries = rng.integers(-4, 5, size=(q, DIM)).astype(np.float32)
+    else:
+        db = rng.normal(size=(cap, DIM)).astype(np.float32)
+        queries = rng.normal(size=(q, DIM)).astype(np.float32)
+    valid = rng.random(cap) > 0.1
+    valid[rows:2 * rows] = False  # the second split has no live row
+    part_v, part_i = fused_knn.knn_partial_plain(
+        torch.from_numpy(queries), torch.from_numpy(db), torch.from_numpy(valid), k, rows)
+    assert part_v.shape == (5, q, k)
+    for s in range(5):
+        live = min(k, int(valid[s * rows:(s + 1) * rows].sum()))
+        v, i = part_v[s], part_i[s]
+        assert bool(torch.isfinite(v[:, :live]).all()) and not torch.isfinite(v[:, live:]).any()
+        assert bool(((i >= 0) & (i < cap)).all()) and _non_increasing(v)
+    got_v, got_i = fused_knn.topk_merge_plain(part_v, part_i, k)
+    want_v, want_i = jax_chunked(jnp.asarray(queries), jnp.asarray(db), jnp.asarray(valid),
+                                 k + 1)
+    want_v, want_i = np.asarray(want_v), np.asarray(want_i)
+    got_v, got_i = got_v.numpy(), got_i.numpy()
+    fin = np.isfinite(want_v[:, :k])
+    assert int(fin.sum(-1).max()) == min(k, int(valid.sum()))
+    np.testing.assert_array_equal(np.isfinite(got_v), fin)
+    np.testing.assert_allclose(got_v[fin], want_v[:, :k][fin], rtol=1e-5, atol=1e-5)
+    ids = fin if integer else fin & _clear(want_v, k, 1e-4)
+    np.testing.assert_array_equal(got_i[ids], want_i[:, :k][ids])

@@ -15,6 +15,7 @@ import signal
 import socket
 import subprocess
 import sys
+import zlib
 
 import pytest
 
@@ -22,14 +23,50 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 150
 
 
+# Port bases come from below the host's ephemeral range. A port from
+# bind(("", 0)) is ephemeral (odd, on Linux), and every outgoing TCP
+# connection on the host takes its source port from the same range (the
+# even ports): between the probe and the ranks' binds (the launcher's and
+# then each rank's imports, seconds under a loaded test run) another
+# process's connection could take base + 1, and that rank's listener then
+# failed to bind. Below the range only an explicit bind takes a port. The
+# ports there are cut into blocks, and each process walks them from a
+# block of its own, picked by its pid and this checkout's path: the pid
+# times a prime, so that nearby pids (pytest-xdist workers, or two test
+# runs of two checkouts on one host) start hundreds of blocks apart and
+# do not probe the same ports in the same seconds.
+_BLOCK = 16  # ports a block: the most one base is asked for
+_SPAN = 8192  # ports below the ephemeral range that the blocks cover
+
+
+def _port_blocks() -> range:
+    """The first port of each block below the ephemeral range."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768  # Linux's default
+    return range(max(1024, low - _SPAN), low - _BLOCK + 1, _BLOCK)
+
+
+def _first_block(pid: int, n_blocks: int) -> int:
+    return (pid * 7919 + zlib.crc32(REPO.encode())) % n_blocks
+
+
+_next_block = {"at": None}
+
+
 def _free_port_base(n: int = 5) -> int:
     """A base with n consecutive free ports (bound, then released): the
-    rank listeners and the coordinator past them."""
-    for _ in range(50):
-        probe = socket.socket()
-        probe.bind(("127.0.0.1", 0))
-        base = probe.getsockname()[1]
-        probe.close()
+    rank listeners and the coordinator past them, the first of the next
+    block of this process's walk where they are all free."""
+    assert n <= _BLOCK
+    blocks = _port_blocks()
+    if _next_block["at"] is None:
+        _next_block["at"] = _first_block(os.getpid(), len(blocks))
+    for _ in range(len(blocks)):
+        base = blocks[_next_block["at"]]
+        _next_block["at"] = (_next_block["at"] + 1) % len(blocks)
         socks = []
         try:
             for i in range(n):
@@ -43,6 +80,38 @@ def _free_port_base(n: int = 5) -> int:
             for s in socks:
                 s.close()
     raise RuntimeError("no consecutive free port range found")
+
+
+def test_port_bases_lie_below_the_ephemeral_range():
+    """Each base and the ports past it lie in one block below the range
+    that bind(("", 0)) and outgoing connections draw from, and are free
+    when handed out."""
+    blocks = _port_blocks()
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+        low = int(f.read().split()[0])
+    assert blocks[-1] + _BLOCK <= low
+    for n in (2, 5, 9):
+        base = _free_port_base(n)
+        assert base in blocks and base + n - 1 < base + _BLOCK
+        socks = [socket.socket() for _ in range(n)]
+        try:
+            for i, s in enumerate(socks):
+                s.bind(("127.0.0.1", base + i))
+        finally:
+            for s in socks:
+                s.close()
+
+
+def test_nearby_pids_start_their_walks_apart():
+    """Processes whose pids lie within one cycle of blocks start their
+    walks at different blocks, and two consecutive pids a tenth of the
+    blocks or more apart, so that their first few bases never meet."""
+    n_blocks = len(_port_blocks())
+    pid = os.getpid()
+    firsts = [_first_block(p, n_blocks) for p in range(pid, pid + n_blocks)]
+    assert len(set(firsts)) == n_blocks
+    for a, b in zip(firsts, firsts[1:]):
+        assert min((a - b) % n_blocks, (b - a) % n_blocks) >= n_blocks // 10
 
 
 def _env(**kw):

@@ -435,6 +435,30 @@ def test_kernel_sources_and_flags():
     assert "torch" not in src  # a plain C interface, bound with ctypes
 
 
+def test_ptxas_usage_reads_the_build_log(tmp_path):
+    """Registers of each entry function and the stack and spill bytes of
+    every function, as ``-Xptxas -v`` writes them into a build's log, and
+    the partial kernel's instances keyed by tile, passes and k > 32."""
+    from chip_smoke import partial_usage, ptxas_usage
+
+    log = tmp_path / "fused_knn.log"
+    assert ptxas_usage(str(log)) == {} and partial_usage(str(tmp_path)) == {}
+    entry = "_ZN3knn14partial_kernelILi64ELi3ELb1EEEvPf"
+    log.write_text(
+        f"ptxas info    : Compiling entry function '{entry}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {entry}\n"
+        "    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers, 512 bytes cmem[0]\n"
+        "ptxas info    : Function properties for _ZN3knn9sort_liveEv\n"
+        "    0 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads\n")
+    assert ptxas_usage(str(log)) == {
+        entry: {"stack": 8, "spill_stores": 0, "spill_loads": 0, "registers": 168},
+        "_ZN3knn9sort_liveEv": {"stack": 0, "spill_stores": 12, "spill_loads": 12},
+    }
+    assert partial_usage(str(tmp_path)) == {
+        (64, 3, True): {"stack": 8, "spill_stores": 0, "spill_loads": 0, "registers": 168}}
+
+
 def test_build_without_nvcc_raises():
     if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("nvcc is present")
