@@ -48,7 +48,8 @@ def validate_trace(doc: dict) -> list[str]:
       spans are exempt: ring slot 0 collects duration samples from
       WHICHEVER thread entered a GIL-free region (main thread encodes
       while a receiver thread decodes), so its track is a sample stream,
-      not a call stack;
+      not a call stack. ``wait`` spans (a request's time in a queue,
+      no thread's own, one track per span name) overlap the same way;
     * node spans carry the args the profile joins on (node/rows/rep).
     """
     problems: list[str] = []
@@ -100,8 +101,8 @@ def validate_trace(doc: dict) -> list[str]:
                     f"event {i}: device span missing dispatch arg"
                 )
             continue
-        if e.get("cat") == "native":
-            continue  # sample stream, not a call stack (see docstring)
+        if e.get("cat") in ("native", "wait"):
+            continue  # sample streams, not call stacks (see docstring)
         stack = stacks[key]
         while stack and ts >= stack[-1][1] - eps:
             stack.pop()

@@ -107,6 +107,7 @@ PASSTHROUGH_FAMILIES = (
     "device_site_wall_seconds_total",
     "device_site_flops_total",
     "device_site_flops_effective_total",
+    "device_site_queue_depth_total",
     "device_site_recompiles_total",
     # device fault domain: which rank is retrying, tripping
     # its watchdog, refusing growth, or paying restore time — per rank

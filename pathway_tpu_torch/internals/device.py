@@ -20,9 +20,13 @@ dispatch) therefore wrap every launch in a **timed dispatch record**:
   launch pipeline. On the CPU the launch is synchronous and the device
   time is the host span;
 * analytical FLOPs / bytes-accessed from the site's cost model;
-* host<->device transfer bytes and the dispatch-queue depth at launch;
+* host<->device transfer bytes and the dispatch-queue depth at launch:
+  the records open on the host plus the closed ones whose end event the
+  device has not passed yet;
 * the enclosing engine node, so device spans in the merged Perfetto trace
-  correlate to their node span by dispatch id.
+  correlate to their node span by dispatch id, and the batch number
+  (``trace_id``) of the serve or ingest batch that launched it, so they
+  correlate to that batch's host spans (``FlightRecorder.note_span``).
 
 Records feed the flight recorder's per-rank device tracks
 (``internals/flight.py note_dispatch``) and the OpenMetrics ``device_*``
@@ -33,7 +37,11 @@ The plane is armed only while the runtime's profiling plane is on
 (``PATHWAY_TRACE`` or a live /metrics endpoint); when off, a dispatch path
 pays ONE attribute check (``PLANE.on``). Reading the card's name or its
 allocator never creates a CUDA context: a pure relational run has no
-device story.
+device story. The host spans of the serve and ingest paths are recorded
+while the plane is on with a recorder: ``PLANE.recorder if PLANE.on else
+None`` is the one check a span site makes before anything else. With a
+recorder, ``begin`` and ``end`` note their own host time as the spans
+``plane.begin`` and ``plane.end``.
 """
 
 from __future__ import annotations
@@ -471,6 +479,14 @@ def snapshot_staging_bytes(capacity: int, dim: int) -> float:
 # -- the plane ---------------------------------------------------------------
 
 
+def _profiler_recording() -> bool:
+    """A torch.profiler session records on this process."""
+    try:
+        return bool(torch._C._autograd._profiler_enabled())
+    except AttributeError:
+        return False
+
+
 def _cuda_of(device: Any) -> torch.device | None:
     if device is None:
         return None
@@ -482,16 +498,17 @@ class _Dispatch:
     """One in-flight dispatch record (``PLANE.begin`` ... ``end``)."""
 
     __slots__ = (
-        "site", "seq", "node", "t_commit", "t0", "t_end", "depth",
-        "ev0", "ev1", "host_device", "costs",
+        "site", "seq", "node", "t_commit", "trace_id", "t0", "t_end",
+        "depth", "ev0", "ev1", "host_device", "costs",
     )
 
     def __init__(self, site: str, seq: int, node, t_commit, t0: int,
-                 depth: int, ev0):
+                 depth: int, ev0, trace_id=None):
         self.site = site
         self.seq = seq
         self.node = node
         self.t_commit = t_commit
+        self.trace_id = trace_id
         self.t0 = t0
         self.t_end = t0
         self.depth = depth
@@ -513,7 +530,11 @@ class DevicePlane:
     A CUDA record stays pending after ``end`` until its end event has
     completed; pending records are resolved, oldest first, by later
     ``begin``/``end`` calls and by ``flush`` (which waits on the events
-    and is called off the hot path: at disarm and by readers).
+    and is called off the hot path: at disarm and by readers). The queue
+    depth a record takes at ``begin`` counts the records still open on
+    the host and the pending ones whose end event the device has not
+    passed (``query()``, never a synchronize): the launches queued ahead
+    of it.
     """
 
     # memory_stats() walks the allocator — sample at most this often
@@ -524,7 +545,7 @@ class DevicePlane:
         self.recorder = None
         self.stats = None
         self._seq = 0
-        self._inflight = 0
+        self._open = 0  # records begun and not yet ended
         self._lock = threading.Lock()
         self._pending: list[_Dispatch] = []
         self._node_ctx = threading.local()
@@ -546,8 +567,21 @@ class DevicePlane:
         # PREVIOUS run left its record open — re-zero so queue-depth
         # reporting starts honest for this run
         with self._lock:
-            self._inflight = 0
+            self._open = 0
             self._pending = []
+        if recorder is not None and _profiler_recording():
+            # one annotation on the profiler's clock: its perf_counter_ns
+            # places the recorder's events on the profiler's trace. The
+            # first annotations of a session stamp their start up to
+            # ~1.5 ms away from their body (lazy set-up on the CPU); two
+            # before it bring the anchor within a few microseconds
+            from pathway_tpu_torch.internals.flight import CLOCK_MARK
+
+            for _ in range(2):
+                with torch.profiler.record_function(CLOCK_MARK + ".warm"):
+                    pass
+            with torch.profiler.record_function(CLOCK_MARK):
+                recorder.clock_anchor_ns = _time.perf_counter_ns()
         self.on = True
 
     def disarm(self) -> None:
@@ -566,6 +600,15 @@ class DevicePlane:
     def _current_node(self):
         return getattr(self._node_ctx, "v", None)
 
+    # -- batch context (serve and ingest paths) ----------------------------
+    def set_trace(self, trace_id) -> None:
+        """The batch number the calling thread works on (None: none); the
+        dispatch records it opens carry it as their ``trace_id``."""
+        self._node_ctx.trace = trace_id
+
+    def current_trace(self):
+        return getattr(self._node_ctx, "trace", None)
+
     # -- dispatch records --------------------------------------------------
     def begin(self, site: str, device: Any = None) -> _Dispatch | None:
         """Open a dispatch record (None when the plane is off — sites
@@ -574,12 +617,20 @@ class DevicePlane:
         stream before the launch."""
         if not self.on:
             return None
+        rec = self.recorder
+        if rec is not None:
+            span = rec.span_start()
         self._resolve(block=False)
         with self._lock:
             self._seq += 1
             seq = self._seq
-            self._inflight += 1
-            depth = self._inflight
+            self._open += 1
+            # the head of _pending is not passed (_resolve stopped there);
+            # records behind it may be, on another stream
+            depth = self._open + sum(
+                1 for p in self._pending
+                if p.ev1 is not None and not p.ev1.query()
+            )
         ctx = self._current_node()
         nid, t_commit = ctx if ctx is not None else (None, None)
         ev0 = None
@@ -587,8 +638,12 @@ class DevicePlane:
         if cuda is not None:
             ev0 = torch.cuda.Event(enable_timing=True)
             ev0.record(torch.cuda.current_stream(cuda))
-        return _Dispatch(site, seq, nid, t_commit, _time.perf_counter_ns(),
-                         depth, ev0)
+        d = _Dispatch(site, seq, nid, t_commit, _time.perf_counter_ns(),
+                      depth, ev0, self.current_trace())
+        if rec is not None:
+            # the plane's own cost on the launching thread
+            rec.span_end("plane.begin", span, d.trace_id)
+        return d
 
     def enqueued(self, d: _Dispatch | None) -> None:
         """Mark the end of the launch explicitly: a CUDA record takes its
@@ -623,8 +678,11 @@ class DevicePlane:
         ``flops``."""
         if d is None:
             return
+        rec = self.recorder
+        if rec is not None:
+            span = rec.span_start()
         with self._lock:
-            self._inflight = max(0, self._inflight - 1)
+            self._open = max(0, self._open - 1)
         if flops_effective is None:
             flops_effective = (
                 flops * min(max(effective_share, 0.0), 1.0)
@@ -647,6 +705,8 @@ class DevicePlane:
             self._pending.append(d)
         self._resolve(block=False)
         self._sample_memory_throttled()
+        if rec is not None:
+            rec.span_end("plane.end", span, d.trace_id)
 
     def flush(self) -> None:
         """Deliver every pending record, waiting for the device to pass
@@ -690,7 +750,7 @@ class DevicePlane:
             rec.note_dispatch(
                 d.site, d.seq, d.node, d.t_commit, d.t0, t_ret,
                 t_done, flops, bytes_accessed, transfer_bytes, d.depth,
-                flops_effective,
+                flops_effective, d.trace_id,
             )
 
     def note_recompile(self, site: str) -> None:

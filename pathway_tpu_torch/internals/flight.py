@@ -23,7 +23,14 @@ What gets recorded, per rank:
 * **event-time lag watermarks**: connectors stamp ingest time at flush
   (io/_connector.py), sinks report commit→emit latency — the per-output
   freshness histogram also lands on OpenMetrics
-  (internals/monitoring.py ``output_lag_ms``).
+  (internals/monitoring.py ``output_lag_ms``);
+* **host spans of the serve and ingest paths** (``note_span``:
+  ops/query_engine.py, models/encoder.py ``encode_tokens_device``,
+  ops/ingest.py), each with its wall span, the thread's CPU time over it
+  (wall less CPU is off-CPU time: the GIL, lock waits, blocking copies)
+  and the batch number (``trace_id``) that the batch's device dispatch
+  records carry too. A span site pays one attribute check while the
+  device plane is off or has no recorder.
 
 Export: one track per rank×thread. Multi-rank runs write per-rank
 partials (``<path>.r<rank>``) that rank 0 merges at shutdown — clock
@@ -43,6 +50,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading as _threading
 import time as _time
 from bisect import bisect_right
 from typing import Any
@@ -59,6 +67,16 @@ NATIVE_TAGS = {
 }
 
 TRACE_SCHEMA_VERSION = 1
+
+# the torch.profiler annotation the device plane emits when it is armed
+# inside a profiler session: its perf_counter_ns is the recorder's
+# ``clock_anchor_ns``, which places the recorder's events on the
+# profiler's clock (``merge_into_profiler_trace``)
+CLOCK_MARK = "pathway.clock"
+# pid base of the recorder's tracks inside a profiler's trace file, clear
+# of the profiler's own (the OS pid for the host, the card's index for
+# its streams)
+PROFILER_PID_BASE = 1_000_000
 
 
 def trace_path() -> str | None:
@@ -128,6 +146,9 @@ class FlightRecorder:
         # (OTLP span export; merge fallback when no tsync ran)
         self.wall_anchor_ns = _time.time_ns()
         self.mono_anchor_ns = _time.perf_counter_ns()
+        # perf_counter_ns of the CLOCK_MARK annotation, when the device
+        # plane was armed inside a torch.profiler session
+        self.clock_anchor_ns: int | None = None
         self._ring_armed = False
         self.dumped = False
 
@@ -236,7 +257,7 @@ class FlightRecorder:
     def note_dispatch(
         self, site, seq, node, t_commit, t0, t_ret, t_done,
         flops, bytes_accessed, transfer_bytes, depth,
-        flops_effective=None,
+        flops_effective=None, trace_id=None,
     ) -> None:
         # device plane (internals/device.py): one record per
         # JAX dispatch an engine site issued — wall span [t0, t_done],
@@ -248,11 +269,37 @@ class FlightRecorder:
         # node span on the engine track. flops_effective is
         # the real-row share of flops (None = fully effective) — the
         # profile's effective-MFU column rides the trace with it.
+        # trace_id: the batch number of the host spans around the launch
+        # (None outside a numbered batch).
         self._note(
             ("disp", site, seq, node, t_commit, t0, t_ret, t_done,
              flops, bytes_accessed, transfer_bytes, depth,
-             flops if flops_effective is None else flops_effective)
+             flops if flops_effective is None else flops_effective,
+             trace_id)
         )
+
+    def note_span(self, name, t0_ns, t1_ns, cpu_ns, trace_id, **args) -> None:
+        # a host span of the serve or ingest path on the calling thread:
+        # cpu_ns is the thread's CPU time over [t0_ns, t1_ns], or None
+        # for a span that is no thread's (a request's wait in a queue,
+        # noted by whichever thread ends it)
+        self._note(
+            ("span", name, _threading.get_ident(), t0_ns, t1_ns, cpu_ns,
+             trace_id, args)
+        )
+
+    @staticmethod
+    def span_start() -> tuple[int, int]:
+        """(wall ns, thread CPU ns) at a span's start; ``span_end``
+        closes it. Wall is read outside CPU at both ends, so a span's
+        CPU time never exceeds its wall."""
+        t = _time.perf_counter_ns()
+        return t, _time.thread_time_ns()
+
+    def span_end(self, name, start, trace_id, **args) -> None:
+        c = _time.thread_time_ns()
+        t1 = _time.perf_counter_ns()
+        self.note_span(name, start[0], t1, c - start[1], trace_id, **args)
 
     def note_mark(self, name: str, **args: Any) -> None:
         self._note(("mark", name, _time.perf_counter_ns(), args))
@@ -427,6 +474,9 @@ class FlightRecorder:
             return tid
 
         dispatch_tids: dict[str, int] = {}
+        thread_tids: dict[int, int] = {}
+        wait_tids: dict[str, int] = {}
+        thread_names = {t.ident: t.name for t in _threading.enumerate()}
         labels: dict[int, str] = {}
         if scope is not None:
             labels = {
@@ -536,6 +586,7 @@ class FlightRecorder:
                 (_, site, seq, node, t_commit, t0, t_ret, t_done,
                  flops, bytes_acc, xfer, depth, *rest) = ev
                 flops_eff = rest[0] if rest else flops
+                trace_id = rest[1] if len(rest) > 1 else None
                 sidx = dispatch_tids.setdefault(
                     site, 400 + len(dispatch_tids)
                 )
@@ -558,7 +609,39 @@ class FlightRecorder:
                             "bytes_accessed": bytes_acc,
                             "transfer_bytes": xfer,
                             "queue_depth": depth,
+                            "trace_id": trace_id,
                         },
+                    }
+                )
+            elif kind == "span":
+                # a thread's span lands on that thread's track (500+),
+                # nested like a call stack; a span that is no thread's
+                # (cpu None: a request's queue wait) on one track per
+                # span name (600+), cat "wait": those overlap, a sample
+                # stream exempt from the nesting check like "device"
+                _, name, ident, t0, t1, cpu, trace_id, args = ev
+                wall = max(0, t1 - t0)
+                if cpu is None:
+                    tid = tid_named(
+                        wait_tids.setdefault(name, 600 + len(wait_tids)),
+                        f"wait {name}",
+                    )
+                    cat, extra = "wait", {}
+                else:
+                    if ident not in thread_tids:
+                        thread_tids[ident] = 500 + len(thread_tids)
+                    tid = tid_named(
+                        thread_tids[ident],
+                        thread_names.get(ident, f"thread {ident}"),
+                    )
+                    cat = "span"
+                    extra = {"offcpu_us": _dur_us(min(cpu, wall), wall)}
+                out.append(
+                    {
+                        "name": name, "cat": cat, "ph": "X", "pid": pid,
+                        "tid": tid, "ts": self._us(t0),
+                        "dur": _dur_us(t0, t1),
+                        "args": {"trace_id": trace_id, **extra, **args},
                     }
                 )
             elif kind == "mark":
@@ -695,6 +778,7 @@ class FlightRecorder:
             ],
             "wall_anchor_ns": self.wall_anchor_ns,
             "mono_anchor_ns": self.mono_anchor_ns,
+            "clock_anchor_ns": self.clock_anchor_ns,
             "events": self.chrome_events(scope),
             "nodes": self.node_meta(scope),
         }
@@ -791,6 +875,7 @@ def merge_trace_files(
             # conversion — recorded here for post-mortems only
             "offset_segments": doc.get("offset_segments"),
             "wall_anchor_ns": doc.get("wall_anchor_ns"),
+            "clock_anchor_ns": doc.get("clock_anchor_ns"),
             # what hardware this rank measured (device plane)
             "platform": doc.get("platform"),
         }
@@ -817,3 +902,48 @@ def merge_trace_files(
             except OSError:
                 pass
     return path
+
+
+def merge_into_profiler_trace(profiler_path: str, trace_file: str | None) -> bool:
+    """Add the events of the recorder's dumped trace ``trace_file`` to the
+    torch.profiler Chrome trace at ``profiler_path``, on the profiler's
+    clock: the recorder's ``clock_anchor_ns`` is the perf_counter_ns of
+    the profiler's ``CLOCK_MARK`` annotation, so one shift places every
+    span, node span and dispatch record above the card's kernels. Their
+    tracks keep their names under pids from ``PROFILER_PID_BASE``. A
+    merged multi-rank trace is placed by rank 0's anchor. Returns False,
+    and leaves the file as it was, when either file or the anchor is
+    missing."""
+    if not trace_file:
+        return False
+    try:
+        with open(trace_file) as f:
+            doc = json.load(f)
+        with open(profiler_path) as f:
+            prof = json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return False
+    meta = doc.get("pathway", {})
+    anchor = meta.get("clock_anchor_ns")
+    if anchor is None:
+        anchor = (meta.get("rank_meta", {}).get("rank0") or {}).get(
+            "clock_anchor_ns"
+        )
+    events = prof.get("traceEvents", [])
+    mark = next(
+        (e for e in events if e.get("name") == CLOCK_MARK and "ts" in e), None
+    )
+    if anchor is None or mark is None:
+        return False
+    shift = float(mark["ts"]) - anchor / 1000.0
+    for e in doc.get("traceEvents", ()):
+        e = dict(e)
+        e["pid"] = PROFILER_PID_BASE + int(e.get("pid", 0))
+        if "ts" in e:
+            e["ts"] = round(float(e["ts"]) + shift, 3)
+        if e.get("ph") == "M" and e.get("name") == "process_name":
+            e["args"] = {"name": f"pathway {e['args'].get('name', '')}"}
+        events.append(e)
+    prof["traceEvents"] = events
+    _atomic_write_json(profiler_path, prof)
+    return True

@@ -300,11 +300,13 @@ class ProberStats:
     sink_egress_s: dict = field(default_factory=dict)  # name -> seconds
     # device plane (internals/device.py): per-dispatch-site
     # accounting — [dispatches, wall_s, device_s, flops, bytes_accessed,
-    # transfer_bytes, flops_effective]. device_s is the CUDA-event
-    # device share of each dispatch's wall span; wall - device = host
+    # transfer_bytes, flops_effective, queue_depth_sum]. device_s is the
+    # CUDA-event device share of each dispatch's wall span; wall - device = host
     # assembly. flops_effective is
     # the real-row share of flops — padding waste is the gap between the
-    # two. Bounded cardinality: a handful of static site names
+    # two. queue_depth_sum over dispatches is the mean number of
+    # launches queued ahead of one (the device's backlog at launch).
+    # Bounded cardinality: a handful of static site names
     # (knn.search, encoder.forward, ingest.fused, serve.window, ...).
     device_sites: dict = field(default_factory=dict)
     # new shape buckets observed at dispatch sites: a shape
@@ -596,7 +598,7 @@ class ProberStats:
             agg = self.device_sites.get(site)
             if agg is None:
                 agg = self.device_sites[site] = [
-                    0, 0.0, 0.0, 0.0, 0.0, 0, 0.0,
+                    0, 0.0, 0.0, 0.0, 0.0, 0, 0.0, 0,
                 ]
             agg[0] += 1
             agg[1] += max(0.0, wall_s)
@@ -605,6 +607,7 @@ class ProberStats:
             agg[4] += max(0.0, bytes_accessed)
             agg[5] += max(0, transfer_bytes)
             agg[6] += max(0.0, min(flops_effective, flops))
+            agg[7] += max(0, depth)
             self.device_queue_depth = depth
 
     def on_device_recompile(self, site: str) -> None:
@@ -906,6 +909,7 @@ class ProberStats:
                 ("device_site_wall_seconds_total", 1, "{:.6f}"),
                 ("device_site_flops_total", 3, "{:.6g}"),
                 ("device_site_flops_effective_total", 6, "{:.6g}"),
+                ("device_site_queue_depth_total", 7, "{}"),
             ):
                 lines.append(f"# TYPE {metric} counter")
                 for site in sorted(self.device_sites):

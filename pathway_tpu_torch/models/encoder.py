@@ -479,12 +479,22 @@ class SentenceEncoder:
 
         The device site ``encoder.forward``: the launch runs under
         ``supervised_dispatch`` and, while the device plane is armed,
-        inside one timed dispatch record closed on CUDA events."""
+        inside one timed dispatch record closed on CUDA events. With a
+        flight recorder it also notes the host spans ``encoder.pad``
+        (padding; ``nb``, ``Lb``: the bucket), ``encoder.h2d`` (the token
+        copies, which wait for the stream) and ``encoder.launch`` (the
+        graph's replay, or the eager forward)."""
+        rec = _DEVICE.recorder if _DEVICE.on else None
+        if rec is not None:
+            tid = _DEVICE.current_trace()
+            span = rec.span_start()
         ids_p, mask_p, n = pad_batch(
             ids, mask, self.config.max_len, self.batch_size
         )
         compact = compact_tokens(ids_p, mask_p, self.config.vocab_size)
         nb, Lb = ids_p.shape
+        if rec is not None:
+            rec.span_end("encoder.pad", span, tid, nb=nb, Lb=Lb)
         dev = _DEVICE.begin("encoder.forward", self.device) if _DEVICE.on else None
         if compact is not None:
             wire = compact
@@ -494,6 +504,8 @@ class SentenceEncoder:
             lengths = mask_p.sum(axis=1, dtype=np.int32)
 
         def launch() -> torch.Tensor:
+            if rec is not None:
+                span = rec.span_start()
             if compact is not None:
                 ids_t, mask_t = expand_compact(
                     torch.from_numpy(wire[0]).to(self.device),
@@ -502,10 +514,16 @@ class SentenceEncoder:
             else:
                 ids_t = torch.from_numpy(ids_p).to(self.device, torch.int64)
                 mask_t = torch.from_numpy(mask_p).to(self.device)
-            return self.forward(
+            if rec is not None:
+                rec.span_end("encoder.h2d", span, tid)
+                span = rec.span_start()
+            out = self.forward(
                 ids_t, mask_t, site="encoder.forward",
                 bucket=encoder_bucket(nb, Lb, compact is not None),
             )
+            if rec is not None:
+                rec.span_end("encoder.launch", span, tid)
+            return out
 
         try:
             emb = _devsup.supervised_dispatch("encoder.forward", launch)

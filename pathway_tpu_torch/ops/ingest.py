@@ -21,6 +21,14 @@
 * **Buckets**: each new (batch, seq, capacity, wire dtype) bucket notes a
   recompile at ``ingest.fused`` and, on the card, captures the encoder's
   CUDA graph for it.
+* **Spans**: while the device plane is on with a flight recorder, ``run``
+  numbers its batches (``trace_id``, carried by the ``ingest.fused``
+  record too) and notes host spans: on the producer ``ingest.stage`` over
+  ``ingest.tokenize``, ``ingest.pad`` and ``ingest.h2d``, then
+  ``ingest.put_staged`` (blocked on a full queue: device-bound); on the
+  consumer ``ingest.wait_staged`` (starved: host-bound) and
+  ``ingest.dispatch`` over ``ingest.assign_slots`` (under the index
+  lock).
 
 Padded rows: the JAX chain writes them to slot ``== capacity``, which its
 scatter drops (``mode="drop"``); torch has no drop mode, so only the first
@@ -29,6 +37,7 @@ scatter drops (``mode="drop"``); torch has no drop mode, so only the first
 
 from __future__ import annotations
 
+import itertools
 import os
 import queue
 import threading
@@ -154,15 +163,24 @@ class IngestPipeline:
         self.rows_ingested = 0
         self.real_tokens = 0
         self.padded_tokens = 0
+        self._batch_ids = itertools.count(1)
 
     # -- host stage --------------------------------------------------------
-    def _stage(self, keys: Sequence[Any], texts: Sequence[str]):
+    def _stage(self, keys: Sequence[Any], texts: Sequence[str], trace_id=None):
         """Tokenize + pad one batch and (on CUDA, with ``stage_h2d``)
         start its H2D copy.
         Runs on the producer thread in ``run`` — batch N+1 is staged while
-        batch N's chain occupies the device."""
+        batch N's chain occupies the device. ``trace_id``: the batch's
+        number in ``run`` (None outside it), carried to ``_dispatch``."""
         enc = self.encoder
+        rec = _DEVICE.recorder if _DEVICE.on else None
+        if rec is not None:
+            stage = rec.span_start()
+            span = rec.span_start()
         ids, mask = enc.tokenizer(list(texts))
+        if rec is not None:
+            rec.span_end("ingest.tokenize", span, trace_id)
+            span = rec.span_start()
         ids_p, mask_p, n = pad_batch(
             ids, mask, enc.config.max_len, enc.batch_size
         )
@@ -172,12 +190,17 @@ class IngestPipeline:
         else:
             wire = tuple(torch.from_numpy(a) for a in compact)
         eff_tokens = int(mask_p[:n].sum())
+        if rec is not None:
+            rec.span_end("ingest.pad", span, trace_id,
+                         nb=ids_p.shape[0], Lb=ids_p.shape[1])
         # the injectable H2D staging failure fires per staged batch,
         # before any copy is enqueued: run()'s producer classifies it and
         # stages the same batch again
         fault_point("device.h2d", site=self.site)
         event = None
         if self._copy_stream is not None:
+            if rec is not None:
+                span = rec.span_start()
             # pinned source + async copy on the side stream: the device
             # pulls the next batch's tokens while it computes this one
             with torch.cuda.stream(self._copy_stream):
@@ -187,59 +210,77 @@ class IngestPipeline:
                 )
                 event = torch.cuda.Event()
                 event.record(self._copy_stream)
-        return list(keys), wire, compact is not None, event, n, eff_tokens
+            if rec is not None:
+                rec.span_end("ingest.h2d", span, trace_id)
+        if rec is not None:
+            rec.span_end("ingest.stage", stage, trace_id)
+        return (list(keys), wire, compact is not None, event, n, eff_tokens,
+                trace_id)
 
     # -- device stage ------------------------------------------------------
     def _dispatch(self, staged) -> torch.Tensor:
-        keys, wire, compact, event, n, eff_tokens = staged
-        if event is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(event)
-            for t in wire:  # allocated on the copy stream, used on this one
-                t.record_stream(stream)
-        wire = tuple(t.to(self.device) for t in wire)
-        nb, Lb = wire[0].shape
-        self.rows_ingested += n
-        self.real_tokens += eff_tokens
-        self.padded_tokens += nb * Lb
-        index = self.index
-        dev = _DEVICE.begin(self.site, self.device) if _DEVICE.on else None
+        keys, wire, compact, event, n, eff_tokens, trace_id = staged
+        rec = _DEVICE.recorder if _DEVICE.on else None
+        if rec is not None:
+            whole = rec.span_start()
+            _DEVICE.set_trace(trace_id)
         try:
-            with index.lock:
-                slots = index._assign_slots(keys)
-                # the wire carries uint16 ids (in int16 bits: torch has
-                # no uint16 arithmetic), the JAX package's bucket label
-                bucket = ingest_bucket(
-                    nb, Lb, index.capacity, "uint16" if compact else "int32")
+            if event is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(event)
+                for t in wire:  # allocated on the copy stream, used on this one
+                    t.record_stream(stream)
+            wire = tuple(t.to(self.device) for t in wire)
+            nb, Lb = wire[0].shape
+            self.rows_ingested += n
+            self.real_tokens += eff_tokens
+            self.padded_tokens += nb * Lb
+            index = self.index
+            dev = _DEVICE.begin(self.site, self.device) if _DEVICE.on else None
+            try:
+                with index.lock:
+                    if rec is not None:
+                        span = rec.span_start()
+                    slots = index._assign_slots(keys)
+                    if rec is not None:
+                        rec.span_end("ingest.assign_slots", span, trace_id)
+                    # the wire carries uint16 ids (in int16 bits: torch has
+                    # no uint16 arithmetic), the JAX package's bucket label
+                    bucket = ingest_bucket(
+                        nb, Lb, index.capacity, "uint16" if compact else "int32")
 
-                def forward(ids, mask):
-                    return self.encoder.forward(
-                        ids, mask, site=self.site, bucket=bucket)
+                    def forward(ids, mask):
+                        return self.encoder.forward(
+                            ids, mask, site=self.site, bucket=bucket)
 
-                def chain() -> torch.Tensor:
-                    return fused_chain(
-                        forward, wire, compact, n,
-                        lambda emb: index._write_slots(slots, emb, True),
-                    )
+                    def chain() -> torch.Tensor:
+                        return fused_chain(
+                            forward, wire, compact, n,
+                            lambda emb: index._write_slots(slots, emb, True),
+                        )
 
-                # injected faults raise before the launch, so a retry
-                # writes the same slots again (an upsert)
-                emb = _devsup.supervised_dispatch(self.site, chain)
-        except BaseException:
-            _DEVICE.end(dev, None, block=False)
-            raise
-        if dev is not None:
-            # the forward dominates; the slot write adds the sq-norm
-            # reduction and the row traffic (KnnShard.add's model)
-            d = index.dimension
-            flops, acc = forward_cost_model(self.encoder.config, nb, Lb)
-            _DEVICE.end(
-                dev, emb, flops=flops + 4.0 * nb * d,
-                bytes_accessed=acc + 8.0 * nb * d + 8.0 * nb,
-                transfer_bytes=nbytes_of(*wire) + 8 * n,
-                effective_share=eff_tokens / float(nb * Lb),
-            )
-        return emb
+                    # injected faults raise before the launch, so a retry
+                    # writes the same slots again (an upsert)
+                    emb = _devsup.supervised_dispatch(self.site, chain)
+            except BaseException:
+                _DEVICE.end(dev, None, block=False)
+                raise
+            if dev is not None:
+                # the forward dominates; the slot write adds the sq-norm
+                # reduction and the row traffic (KnnShard.add's model)
+                d = index.dimension
+                flops, acc = forward_cost_model(self.encoder.config, nb, Lb)
+                _DEVICE.end(
+                    dev, emb, flops=flops + 4.0 * nb * d,
+                    bytes_accessed=acc + 8.0 * nb * d + 8.0 * nb,
+                    transfer_bytes=nbytes_of(*wire) + 8 * n,
+                    effective_share=eff_tokens / float(nb * Lb),
+                )
+            return emb
+        finally:
+            if rec is not None:
+                _DEVICE.set_trace(None)
+                rec.span_end("ingest.dispatch", whole, trace_id)
 
     # -- public API --------------------------------------------------------
     def ingest(self, keys: Sequence[Any], texts: Sequence[str]) -> torch.Tensor:
@@ -274,12 +315,14 @@ class IngestPipeline:
             retries = _devsup.dispatch_retries()
             try:
                 for keys, texts in batches:
+                    rec = _DEVICE.recorder if _DEVICE.on else None
+                    bid = None if rec is None else next(self._batch_ids)
                     attempt = 0
                     while True:
                         if stop.is_set():
                             return
                         try:
-                            staged = self._stage(keys, texts)
+                            staged = self._stage(keys, texts, bid)
                             break
                         except BaseException as e:
                             kind = (
@@ -300,7 +343,12 @@ class IngestPipeline:
                                 _devsup._RETRY_BACKOFF_CAP_S,
                                 _devsup._RETRY_BACKOFF_BASE_S * 2 ** (attempt - 1),
                             ))
-                    staged_q.put(staged)
+                    if rec is None:
+                        staged_q.put(staged)
+                    else:
+                        span = rec.span_start()
+                        staged_q.put(staged)
+                        rec.span_end("ingest.put_staged", span, bid)
             except BaseException as e:  # surfaced on the consumer side
                 err.append(e)
             finally:
@@ -313,7 +361,14 @@ class IngestPipeline:
         rows = 0
         try:
             while True:
-                staged = staged_q.get()
+                rec = _DEVICE.recorder if _DEVICE.on else None
+                if rec is None:
+                    staged = staged_q.get()
+                else:
+                    span = rec.span_start()
+                    staged = staged_q.get()
+                    rec.span_end("ingest.wait_staged", span,
+                                 None if staged is None else staged[6])
                 if staged is None:
                     break
                 self._dispatch(staged)

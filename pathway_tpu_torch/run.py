@@ -23,7 +23,11 @@ def run(
     trace (host events, plus the card's kernel timeline when CUDA is
     available) written there as a Chrome/Perfetto trace file, the
     profiler analog of the reference's DIFFERENTIAL_LOG_ADDR event
-    stream (SURVEY §5 tracing)."""
+    stream (SURVEY §5 tracing). Under ``PATHWAY_TRACE`` the flight
+    recorder's tracks (node spans, the serve and ingest paths' spans,
+    dispatch records) are added to that file, placed on the profiler's
+    clock by the ``pathway.clock`` annotation the device plane emits when
+    it is armed."""
     from pathway_tpu_torch.internals.interactive import (
         interactive_mode_enabled,
         start as _interactive_start,
@@ -69,11 +73,16 @@ def run(
         activities = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             activities.append(ProfilerActivity.CUDA)
+        from pathway_tpu_torch.internals.flight import (
+            merge_into_profiler_trace,
+            trace_path,
+        )
+
         with _profile(activities=activities) as prof:
             runner.run_outputs()
-        prof.export_chrome_trace(
-            os.path.join(profile, f"pw_run.{os.getpid()}.pt.trace.json")
-        )
+        out = os.path.join(profile, f"pw_run.{os.getpid()}.pt.trace.json")
+        prof.export_chrome_trace(out)
+        merge_into_profiler_trace(out, trace_path())
         return
     runner.run_outputs()
 
