@@ -536,6 +536,9 @@ def fused_topk_scores(
     1..8192 on every device. On CUDA: the partial kernel's instance for
     the precision over about one CTA per SM, then the merge kernel unless
     the plan has one split; on the CPU: the plain ``chunked_topk_scores``.
+    The ``knn.fused`` dispatch record's cost counts the rows given, so a
+    caller that passes the prefix of a buffer in use (``KnnShard.topk``,
+    ``ShardedKnnIndex``) is charged for the rows scanned, not its capacity.
     """
     check_precision(precision)
     if not 1 <= k <= K_MAX:

@@ -3,9 +3,11 @@
 
 The vector store lives on the device as a padded f32 [capacity, d] tensor
 with a validity mask and cached squared norms; capacity doubles on growth
-(powers of two from 128); deletes are O(1) slot-free-list operations. On
-CUDA a search is one launch of the hand-written fused KNN kernel
-(``ops/fused_knn.py``); on the CPU it is the plain ``chunked_topk_scores``.
+(powers of two from 128); deletes are O(1) slot-free-list operations. A
+search scans only the rows in use, the prefix of the buffer below the
+highest slot ever handed out (``KnnShard.rows_in_use``): on CUDA in one
+launch of the hand-written fused KNN kernel (``ops/fused_knn.py``), on
+the CPU by the plain ``chunked_topk_scores``.
 
 Writes are in place (``index_copy_``/indexed assignment). The JAX shard
 gets the same effect by donating its buffers to the write executable.
@@ -43,8 +45,9 @@ from pathway_tpu_torch.internals.device import (
     resolve_device,
 )
 from pathway_tpu_torch.internals.faults import fault_point
-from pathway_tpu_torch.ops.fused_knn import fused_topk_scores
+from pathway_tpu_torch.ops.fused_knn import _TN, fused_topk_scores
 from pathway_tpu_torch.ops.topk import (
+    NEG_INF,
     check_precision,
     chunked_topk_scores,
     topk_scan_cost,
@@ -106,6 +109,15 @@ def write_slots(vectors: torch.Tensor, valid: torch.Tensor,
     sq_norms.index_copy_(0, idx, torch.sum(rows * rows, dim=-1))
 
 
+def scan_rows(mark: int, capacity: int) -> int:
+    """The prefix of a ``capacity``-row buffer a search scans when every
+    live slot lies below ``mark``: the mark rounded up to whole
+    ``_TN``-row granules (the partial kernel's split granule), at least
+    one granule, at most the buffer. ``KnnShard`` and each shard of
+    ``ShardedKnnIndex`` take their prefix from here."""
+    return min(capacity, -(-max(mark, 1) // _TN) * _TN)
+
+
 def search_topk(queries: torch.Tensor, vectors: torch.Tensor,
                 valid: torch.Tensor, sq_norms: torch.Tensor, k_eff: int,
                 metric: str, precision: str = "highest",
@@ -116,6 +128,8 @@ def search_topk(queries: torch.Tensor, vectors: torch.Tensor,
     for ``precision``), the plain chunked scan in ``chunk``-row blocks
     elsewhere (the kernel plans its own splits: ``chunk`` only caps
     ``k_eff``, as in the JAX package). ``metric`` is "dot" or "l2sq".
+    The buffers may be a prefix of fewer than ``k_eff`` rows: the missing
+    entries are (-inf, slot 0) on both devices, as the kernel writes them.
     Module-level for the Device Doctor, which traces the plain scan on
     meta tensors (a kernel bound through ctypes does not trace)."""
     sq = sq_norms if metric == "l2sq" else None
@@ -124,10 +138,15 @@ def search_topk(queries: torch.Tensor, vectors: torch.Tensor,
             queries, vectors, valid, k_eff, sq_norms=sq, metric=metric,
             precision=precision,
         )
-    return chunked_topk_scores(
+    vals, idx = chunked_topk_scores(
         queries, vectors, valid, k_eff, chunk=chunk, sq_norms=sq,
         metric=metric, precision=precision,
     )
+    short = k_eff - vals.shape[1]
+    if short > 0:
+        vals = torch.nn.functional.pad(vals, (0, short), value=NEG_INF)
+        idx = torch.nn.functional.pad(idx, (0, short))
+    return vals, idx
 
 
 class KnnShard:
@@ -166,6 +185,12 @@ class KnnShard:
         self.key_seq: dict[Any, int] = {}
         self._next_seq = 0
         self.free_slots: list[int] = list(range(self.capacity - 1, -1, -1))
+        # rows in use: 1 + the highest slot handed out since the buffers
+        # were last rebuilt. The free list hands out its lowest fresh slot
+        # first and refills freed ones first, so every live slot lies
+        # below it and a search scans only that prefix (``rows_in_use``);
+        # it never falls on remove and growth leaves it as it is
+        self.rows_used = 0
         self.vectors = torch.zeros(
             (self.capacity, self.dimension), dtype=torch.float32, device=self.device
         )
@@ -279,7 +304,12 @@ class KnnShard:
             # here before its encoder + write launch
             self._dirty[key] = None
             self._dirty_removed.pop(key, None)
-        return np.asarray(slots, dtype=np.int64)
+        slots = np.asarray(slots, dtype=np.int64)
+        # raised before the caller launches the write that makes these
+        # slots valid, so a search ordered after that write scans them
+        if len(slots):
+            self.rows_used = max(self.rows_used, int(slots.max()) + 1)
+        return slots
 
     def _write_slots(self, slots: np.ndarray, rows: torch.Tensor, valid: bool,
                      *, normalize: bool = False) -> None:
@@ -389,6 +419,7 @@ class KnnShard:
         self.sq_norms = torch.zeros(
             self.capacity, dtype=torch.float32, device=self.device
         )
+        self.rows_used = n
         if not n:
             return
         # slots pop from the free list in ascending order: 0 .. n-1
@@ -403,14 +434,23 @@ class KnnShard:
         self._write_slots(slots, torch.from_numpy(rows).to(self.device), True)
 
     # -- search -----------------------------------------------------------
+    def rows_in_use(self) -> int:
+        """The prefix of the buffer a search scans: every live slot,
+        rounded up to whole ``_TN``-row granules (``scan_rows``). Caller
+        holds ``self.lock``."""
+        return scan_rows(self.rows_used, self.capacity)
+
     def topk(self, queries: torch.Tensor, k_eff: int, metric: str):
         """(values, slots) on the device for queries already on it, at
-        the shard's precision: the fused kernel on CUDA (any k_eff of
-        ``knn_search_bucket``, 1..8192), the plain chunked scan on the
-        CPU. ``metric`` is "dot" or "l2sq". Caller holds ``self.lock``."""
+        the shard's precision, over the rows in use (every slot past them
+        is invalid, so the answer is the whole buffer's): the fused kernel
+        on CUDA (any k_eff of ``knn_search_bucket``, 1..8192), the plain
+        chunked scan on the CPU. ``metric`` is "dot" or "l2sq". Caller
+        holds ``self.lock``."""
+        u = self.rows_in_use()
         return search_topk(
-            queries, self.vectors, self.valid, self.sq_norms, k_eff, metric,
-            self.precision, self.chunk,
+            queries, self.vectors[:u], self.valid[:u], self.sq_norms[:u], k_eff,
+            metric, self.precision, self.chunk,
         )
 
     def search(self, queries, k: int) -> list[list[tuple[Any, float]]]:
@@ -440,7 +480,7 @@ class KnnShard:
                 _DEVICE.enqueued(dev)
                 epoch = self.remove_epoch
                 live_rows = len(self.key_to_slot)
-                capacity = self.capacity
+                scanned = self.rows_in_use()
             vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
         except BaseException:
             # close the record on the failure path too: an abandoned
@@ -448,9 +488,9 @@ class KnnShard:
             _DEVICE.end(dev, None, block=False)
             raise
         if dev is not None:
-            flops, acc = topk_scan_cost(n, capacity, self.dimension, k_eff)
+            flops, acc = topk_scan_cost(n, scanned, self.dimension, k_eff)
             # effective FLOPs: only live rows count as useful work — the
-            # empty tail of the pow2 capacity buffer is padding waste
+            # freed slots and the granule's tail below the mark are waste
             flops_eff, _ = topk_scan_cost(n, live_rows, self.dimension, k_eff)
             _DEVICE.end(
                 dev, vals, flops=flops, flops_effective=flops_eff,

@@ -21,7 +21,8 @@ dispatch records carry too:
   close), then ``serve.dispatch`` (``n`` queries) over
   ``serve.tokenize``, the encoder's ``encoder.pad`` / ``encoder.h2d`` /
   ``encoder.launch``, ``knn.lock_wait`` and ``knn.launch`` (``tile``: the
-  partial kernel's query-tile instance on the card), and the device
+  partial kernel's query-tile instance on the card; ``rows``: the prefix
+  of the shard's buffer the search scanned), and the device
   plane's ``plane.begin`` / ``plane.end`` of each dispatch record;
 * ``serve.ticket_wait`` (a batch waiting for a readback thread), then on
   that thread ``serve.finish`` over ``serve.readback`` (the one
@@ -105,11 +106,13 @@ class QueryEngine:
             # slot-freeing remove cannot race this dispatch
             vals, idx = self.shard.topk(emb.contiguous(), self.k_eff, self.metric)
             epoch = self.shard.remove_epoch
+            if rec is not None:
+                rows = self.shard.rows_in_use()
         packed = torch.cat([vals, idx.view(torch.float32)], dim=1)
         if rec is not None:
             tile = (plan_tile(n, self.k_eff, self.shard.precision).n
                     if self.device.type == "cuda" else None)
-            rec.span_end("knn.launch", span, tid, tile=tile)
+            rec.span_end("knn.launch", span, tid, tile=tile, rows=rows)
         return packed, n, epoch
 
     def finish(self, ticket) -> list[list[tuple[Any, float]]]:

@@ -185,8 +185,10 @@ def chunked_topk_scores(
     TF32-rounded operands (the plain version of the kernel's one-pass
     instance), ~1e-3 score error on unit vectors.
 
-    The database is scanned in `chunk`-row blocks; per-block top-k results
-    are merged, keeping peak memory at O(q * chunk) instead of O(q * cap).
+    The database is scanned in `chunk`-row blocks, the last one shorter
+    where `chunk` does not divide cap (a search of a buffer's rows in use
+    passes such a prefix); per-block top-k results are merged, keeping
+    peak memory at O(q * chunk) instead of O(q * cap).
     Returns (values [q, k] f32, indices [q, k] int32).
     """
     check_precision(precision)
@@ -199,8 +201,6 @@ def chunked_topk_scores(
             scores = _block_scores(queries, database, sq_norms, metric, precision)
             vals, idx = masked_topk(scores, valid[None, :], k)
             return vals, idx.to(torch.int32)
-        if cap % chunk:
-            raise ValueError("capacity must be a multiple of chunk")
         best_vals = torch.full((q, k), NEG_INF, device=queries.device)
         best_idx = torch.zeros((q, k), dtype=torch.int32, device=queries.device)
         for base in range(0, cap, chunk):

@@ -49,7 +49,6 @@ from pathway_tpu_torch.internals.device import (
 from pathway_tpu_torch.internals.faults import fault_point
 from pathway_tpu_torch.ops.fused_knn import (
     K_MAX,
-    _TN,
     fused_topk_scores,
     topk_merge,
 )
@@ -58,6 +57,7 @@ from pathway_tpu_torch.ops.knn import (
     Metric,
     _normalize,
     resolve_hits,
+    scan_rows,
     write_cost_model,
 )
 from pathway_tpu_torch.ops.topk import (
@@ -328,8 +328,9 @@ class ShardedKnnIndex:
     def rows_in_use(self) -> list[int]:
         """Per shard, the prefix of its buffer a search scans: every live
         local slot, rounded up to whole ``_TN``-row granules (the partial
-        kernel's split granule). Caller holds ``self.lock``."""
-        return [min(self.local_cap, -(-max(u, 1) // _TN) * _TN) for u in self.rows_used]
+        kernel's split granule; ``scan_rows``, as ``KnnShard``). Caller
+        holds ``self.lock``."""
+        return [scan_rows(u, self.local_cap) for u in self.rows_used]
 
     # shape check; the rows go to the first shard's device (``device``)
     _prepare = KnnShard._prepare

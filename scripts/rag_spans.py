@@ -16,8 +16,10 @@ show (also written to ``--out``): each span's count, mean, median, 95th
 percentile and off-CPU share; the readers of ``rag_bench/metrics`` that
 read the spans; the program's tokenizer span and batch size beside the
 harness's; a served request's time split at the batch's spans; the depth
-of the device queue at launch; and, by second of the window, the batches'
-sizes, host times and encoder buckets and query-tile instances.
+of the device queue at launch; the mean rows a search scanned
+(``knn.launch``'s ``rows``) and their share of the shard's capacity; and,
+by second of the window, the batches' sizes, host times, encoder buckets,
+query-tile instances and rows scanned.
 
 ``armed`` runs the cell as ``--trace 0`` does, with the plane and a
 recorder armed from the start: its end-to-end metrics beside a plain
@@ -142,7 +144,15 @@ def summary(probe, workload: str) -> dict:
             sum(probe.batches) / len(probe.batches)]
         out["request"] = request_split(by_name)
         out["by_second"] = by_second(by_name)
+    rows = _mean([a["rows"] for *_, a in by_name.get("knn.launch", [])])
+    if rows is not None:
+        cap = probe.cfg["deployment"]["capacity"]
+        out["knn_scan"] = {"rows": rows, "capacity": cap, "scanned_share": rows / cap}
     return out
+
+
+def _mean(xs: list) -> float | None:
+    return sum(xs) / len(xs) if xs else None
 
 
 def request_split(by_name: dict) -> dict:
@@ -178,11 +188,13 @@ def request_split(by_name: dict) -> dict:
 def by_second(by_name: dict) -> list[dict]:
     """By second of the window: batches, mean queries a batch, mean
     dispatch and readback ms, the dispatch's off-CPU share, and the
-    batches of each encoder bucket and query-tile instance."""
+    batches of each encoder bucket and query-tile instance, and the mean
+    rows a search scanned."""
     dispatch = by_name.get("serve.dispatch", [])
     t_start = min(s[0] for s in dispatch)
     pad = {s[3]: (s[4]["nb"], s[4]["Lb"]) for s in by_name.get("encoder.pad", [])}
     tile = {s[3]: s[4]["tile"] for s in by_name.get("knn.launch", [])}
+    scan = {s[3]: s[4]["rows"] for s in by_name.get("knn.launch", [])}
     readback = {s[3]: s[1] - s[0] for s in by_name.get("serve.readback", [])}
     rows = collections.defaultdict(list)
     for s in dispatch:
@@ -202,6 +214,7 @@ def by_second(by_name: dict) -> list[dict]:
             "buckets": dict(collections.Counter(
                 f"{pad[s[3]][0]}x{pad[s[3]][1]}" for s in got if s[3] in pad)),
             "tiles": dict(collections.Counter(str(tile.get(s[3])) for s in got)),
+            "rows": _mean([scan[s[3]] for s in got if s[3] in scan]),
         })
     return out
 

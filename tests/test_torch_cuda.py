@@ -377,6 +377,32 @@ def test_partial_kernel_capacity_below_k(gen, N, k):
     assert ((i >= 0) & (i < N)).all()
 
 
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("metric", ["dot", "l2sq"])
+@pytest.mark.parametrize("k", [10, 100, 1024])
+@pytest.mark.parametrize("Q", [1, 9, 32, 256])
+def test_prefix_of_the_buffer_is_bit_equal_to_the_whole(gen, Q, k, metric, precision):
+    """A search of the rows in use (``KnnShard.topk``: views of the first u
+    rows) against the whole buffer, every row past u invalid: values and
+    slots bit-equal. u is 397 granules of 256 rows, a whole number of no
+    split's rows, so the prefix ends inside a split."""
+    cap, u, D = 1 << 18, 397 * 256, 384
+    q = torch.randn(Q, D, generator=gen, device="cuda")
+    db = torch.randn(cap, D, generator=gen, device="cuda")
+    valid = torch.rand(cap, generator=gen, device="cuda") > 0.1
+    valid[u:] = False
+    sq = (db * db).sum(-1)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, _ = fused_knn.plan_splits(Q, u, k, n_sm)
+    assert u % rows
+    kw = dict(metric=metric, precision=precision)
+    v, i = fused_knn.fused_topk_scores(q, db[:u], valid[:u], k, sq_norms=sq[:u], **kw)
+    wv, wi = fused_knn.fused_topk_scores(q, db, valid, k, sq_norms=sq, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(wv).all()
+    assert torch.equal(v, wv) and torch.equal(i, wi)
+
+
 # -- the one-pass instance (precision="default") on the same edges --------------
 
 

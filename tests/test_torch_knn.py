@@ -19,7 +19,20 @@ from pathway_tpu.ops.pallas_knn import pallas_knn_cost, pallas_topk_scores
 from pathway_tpu.ops.topk import auto_chunk as jax_auto_chunk
 from pathway_tpu.ops.topk import chunked_topk_scores as jax_chunked
 from pathway_tpu.ops.topk import topk_scan_cost as jax_scan_cost
-from pathway_tpu_torch.ops import KnnShard, Metric, fused_knn, topk
+from pathway_tpu_torch.internals.device import PLANE, knn_search_bucket
+from pathway_tpu_torch.internals.flight import FlightRecorder
+from pathway_tpu_torch.internals.monitoring import ProberStats
+from pathway_tpu_torch.models import EncoderConfig, SentenceEncoder
+from pathway_tpu_torch.ops import (
+    IngestPipeline,
+    KnnShard,
+    Metric,
+    QueryEngine,
+    fused_knn,
+    knn,
+    topk,
+)
+from pathway_tpu_torch.parallel import ShardedKnnIndex, make_mesh, sharded_knn
 
 
 def _db(seed, cap, d, q, ties=True):
@@ -309,3 +322,177 @@ def test_search_accepts_tensors_and_checks_dimension():
     with pytest.raises(ValueError, match="mismatch"):
         pt.add(["b", "c"], np.ones((1, 4), np.float32))
     assert KnnShard(4, device="cpu").search(np.ones((2, 4), np.float32), 3) == [[], []]
+
+
+# -- the prefix a search scans: rows in use ------------------------------------
+
+
+def _full_scan(shard, fn):
+    """``fn()`` with the shard's mark at its capacity: the search then
+    scans the whole buffer, as before the mark existed."""
+    mark = shard.rows_used
+    shard.rows_used = shard.capacity
+    try:
+        return fn()
+    finally:
+        shard.rows_used = mark
+
+
+def _prefix_steps(pt, jx, enc, rng):
+    """Every writer of a shard in a seeded order, applied to the port's
+    shard and the JAX shard alike; yields after each step."""
+    d = pt.dimension
+
+    def rows(n):
+        return rng.normal(size=(n, d)).astype(np.float32)
+
+    def both(op, *args):
+        getattr(pt, op)(*args)
+        getattr(jx, op)(*args)
+
+    both("add", list(range(200)), rows(200))  # 128 -> 256 slots
+    yield "add"
+    both("remove", list(range(0, 200, 3)))
+    yield "remove"
+    both("add", list(range(0, 60, 2)) + [1000, 1001], rows(32))  # upserts, freed slots
+    yield "upsert"
+    both("add", list(range(2000, 2400)), rows(400))  # 256 -> 1024 slots
+    yield "growth"
+    keys = [f"doc{i}" for i in range(24)]
+    texts = [f"document {i} about topic {i % 5} and item {i * 7 % 11}" for i in range(24)]
+    assert IngestPipeline(enc, pt, device="cpu").run(
+        [(keys[:12], texts[:12]), (keys[12:], texts[12:])]) == 24
+    jx.add(keys, pt.vectors[[pt.key_to_slot[k] for k in keys]].numpy())
+    yield "ingest"
+    both("remove", list(range(2000, 2400, 2)) + keys[::5])
+    yield "remove"
+    pt.load_state(pt.snapshot_state())
+    jx.load_state(jx.snapshot_state())
+    assert pt.rows_used == len(pt)
+    yield "restore"
+    both("add", [5000, 5001], rows(2))
+    yield "add after restore"
+
+
+@pytest.mark.parametrize("k", [10, 300])
+@pytest.mark.parametrize("chunk", [None, 512])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("metric", ["cos", "dot"])
+def test_prefix_scan_answers_as_the_full_buffer(metric, precision, chunk, k):
+    """After each writer of the shard (add, remove, upsert, growth, the
+    fused ingest chain, a restore): no valid slot lies past the rows in
+    use, and the prefix scan answers as the plain scan of the whole
+    buffer and, at "highest", as the JAX shard (``test_torch_precision``
+    holds "default" to it by its own bound). With ``chunk`` 512 the prefix
+    (768 rows after growth) is not a whole number of blocks."""
+    rng = np.random.default_rng(sum(map(ord, metric + precision)) + k)
+    enc = SentenceEncoder(EncoderConfig.tiny(), device="cpu", batch_size=16)
+    kw = dict(chunk=chunk, precision=precision)
+    pt = KnnShard(enc.embed_dim, metric, device="cpu", **kw)
+    jx = JaxShard(enc.embed_dim, metric, chunk=chunk)
+    texts = ["topic 3 and item 5", "document 7", "nothing related at all"]
+    for step in _prefix_steps(pt, jx, enc, rng):
+        u = pt.rows_in_use()
+        assert u == knn.scan_rows(pt.rows_used, pt.capacity), step
+        assert max(pt.slot_to_key) < pt.rows_used <= u <= pt.capacity, step
+        assert not pt.valid[u:].any(), step
+        assert pt.key_to_slot == jx.key_to_slot, step
+        q = np.concatenate([pt.vectors[:2].numpy(),
+                            rng.normal(size=(4, pt.dimension)).astype(np.float32)])
+        # the raw scan: values and slots of every live entry bit-equal
+        qt = torch.from_numpy(q)
+        if metric == "cos":
+            qt = knn._normalize(qt)
+        k_eff = knn_search_bucket(len(q), pt.capacity, k, chunk)[2]
+        got_v, got_i = pt.topk(qt, k_eff, "dot")
+        want_v, want_i = topk.chunked_topk_scores(
+            qt, pt.vectors, pt.valid, k_eff, chunk=chunk, precision=precision)
+        assert got_v.shape == want_v.shape == (len(q), k_eff), step
+        live = torch.isfinite(want_v)
+        assert torch.equal(torch.isfinite(got_v), live), step
+        assert torch.equal(got_v[live], want_v[live]), step
+        assert torch.equal(got_i[live], want_i[live]), step
+        got = pt.search(q, k)
+        assert got == _full_scan(pt, lambda: pt.search(q, k)), step
+        if precision == "highest":
+            _same(got, jx.search(q, k))
+        engine = QueryEngine(enc, pt, k=k, device="cpu")
+        served = engine.query(texts)
+        assert served == _full_scan(pt, lambda: engine.query(texts)), step
+        assert [len(r) for r in served] == [min(k, k_eff, len(pt))] * len(texts)
+
+
+@pytest.mark.parametrize("metric", ["cos", "dot", "l2sq"])
+def test_search_is_handed_the_rounded_mark(metric, monkeypatch):
+    """``search_topk`` is given views of the first ``rows_in_use()`` rows
+    of the three buffers (the mark rounded up to 256-row granules, at
+    least one granule), and the whole buffer once the slots are all
+    handed out; ``knn.launch`` names the same rows."""
+    seen = []
+    inner = knn.search_topk
+
+    def spy(queries, vectors, valid, sq_norms, *args):
+        seen.append((vectors.shape[0], valid.shape[0], sq_norms.shape[0],
+                     vectors.data_ptr() == pt.vectors.data_ptr(),
+                     sq_norms.data_ptr() == pt.sq_norms.data_ptr()))
+        return inner(queries, vectors, valid, sq_norms, *args)
+
+    monkeypatch.setattr(knn, "search_topk", spy)
+    rng = np.random.default_rng(3)
+    pt = KnnShard(8, metric, capacity=1024, device="cpu")
+    q = rng.normal(size=(2, 8)).astype(np.float32)
+
+    def scanned():
+        seen.clear()
+        pt.search(q, 5)
+        (rows, *more), = seen
+        assert more == [rows, rows, True, True]
+        return rows
+
+    pt.add([0], rng.normal(size=(1, 8)).astype(np.float32))
+    assert (pt.rows_used, scanned()) == (1, 256)
+    pt.add(list(range(1, 300)), rng.normal(size=(299, 8)).astype(np.float32))
+    assert (pt.rows_used, scanned()) == (300, 512)
+    pt.remove(list(range(150, 300)))  # the mark never falls
+    assert (pt.rows_used, scanned()) == (300, 512)
+    pt.add(list(range(1000, 1100)), rng.normal(size=(100, 8)).astype(np.float32))
+    assert (pt.rows_used, scanned()) == (300, 512)  # freed slots refilled first
+    pt.add(list(range(2000, 2774)), rng.normal(size=(774, 8)).astype(np.float32))
+    assert (pt.rows_used, scanned()) == (1024, 1024)
+    pt.add(["grown"], rng.normal(size=(1, 8)).astype(np.float32))
+    assert (pt.capacity, pt.rows_used, scanned()) == (2048, 1025, 1280)
+
+    enc = SentenceEncoder(EncoderConfig.tiny(), device="cpu", batch_size=4)
+    small = KnnShard(enc.embed_dim, "cos", capacity=4096, device="cpu")
+    small.add(list(range(10)), rng.normal(size=(10, enc.embed_dim)).astype(np.float32))
+    rec = FlightRecorder("")
+    PLANE.arm(rec, ProberStats())
+    try:
+        got = QueryEngine(enc, small, k=300, device="cpu").query(["a query"])
+    finally:
+        PLANE.disarm()
+    assert len(got[0]) == 10  # k_eff 300 over a 256-row prefix
+    rows = [e[-1]["rows"] for e in rec.events if e[0] == "span" and e[1] == "knn.launch"]
+    assert rows == [256]
+
+
+def test_sharded_rows_in_use_through_the_shared_helper():
+    """``ShardedKnnIndex.rows_in_use`` answers as its own formula did,
+    through ``knn.scan_rows``, across adds, removes, growth and a
+    restore."""
+    assert sharded_knn.scan_rows is knn.scan_rows
+    rng = np.random.default_rng(11)
+    idx = ShardedKnnIndex(8, make_mesh(devices=["cpu"] * 4, axes=("dp",)))
+
+    def before(index):
+        return [min(index.local_cap, -(-max(u, 1) // 256) * 256) for u in index.rows_used]
+
+    seen = [before(idx) == idx.rows_in_use() == [min(idx.local_cap, 256)] * 4]
+    for n in (5, 300, 1500, 40):
+        idx.add([f"{n}-{i}" for i in range(n)], rng.normal(size=(n, 8)).astype(np.float32))
+        seen.append(before(idx) == idx.rows_in_use())
+        idx.remove([f"{n}-{i}" for i in range(0, n, 3)])
+        seen.append(before(idx) == idx.rows_in_use())
+    idx.load_state(idx.snapshot_state())
+    seen.append(before(idx) == idx.rows_in_use())
+    assert all(seen) and max(idx.rows_in_use()) > 256
